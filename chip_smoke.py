@@ -7,8 +7,8 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``.
 Phases, each printing one JSON line:
 
 1. ``build``: compiles every kernel of the port (``csrc/*.cu``) from the
-   sources in the checkout for ``sm_90a``, with the compiler's
-   register/shared-memory report.
+   sources in the checkout for ``sm_90a``, one ``nvcc`` per source, all
+   started together, with the compiler's register/shared-memory report.
 2. ``kernel``: the fused NCC scorer ``score_ncc`` (the wrapper the engine
    calls) against its plain PyTorch version on the card, at the main-path
    shapes (G = 300 prints of 38-46 px raw, C = 176, probes of 28-36 px, a
@@ -27,6 +27,27 @@ Phases, each printing one JSON line:
    the first kernel run and read just after it); ranks and S-lines must be
    identical in all four. Reports each run's stage times and score time per
    cluster.
+4. ``mxu_probe``: the measurement path ``benchmarks/mxu_probe.probe_kernel``
+   (launch counts reset just before it and read just after) runs the probe
+   kernel ``ops/mma_probe`` in f32, 3xTF32 and bf16 at the JAX default shape
+   (512 x 1156 x 128, 48 products a step, 100 steps) and at the NCC row count
+   (n = 1400). Each leg is then held against its plain version
+   ``probe_plain`` (max |kernel - plain| / max |plain| <= 1e-5 for f32 and
+   bf16, <= 1e-4 for 3xTF32) and reports its time, TFLOP/s, the bound at the
+   route's published peak and ``library_ms`` (``y_iters`` calls of
+   ``torch.matmul`` on the (grid, n, k) stack, never called by the port),
+   beside ``probe_matmul``'s 4096^3 rates.
+5. ``bench``: the port's ``bench.py`` at full width (G = 300, C = 176,
+   PB = 56) with Q = 56 probes: engine and kernel-level probes/s.
+6. ``gallery_blocks``: the same workload through ``Pipeline._score_cluster``
+   with ``gallery_block`` 0 and 128 (three blocks, the last of 44 prints),
+   each with ``rank_on_device`` off and on. Scores must agree within 1e-6
+   and ranks be identical. Reports the auto block ``mem_get_info`` gives at
+   a 10,240-print gallery.
+7. ``bench_10k``: the port's ``benchmarks/bench_10k.py`` at G = 10,240,
+   C = 176, PB = 128, in blocks of 2048 prints (five), with its checks
+   (device ranks = host ranks, an oracle subsample within 5e-4, every
+   planted match at rank 1).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and as the last line
@@ -42,15 +63,26 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 # Published H100 SXM peaks (NVIDIA data sheet): FP32 on the CUDA cores and
 # device-memory bandwidth; bound_ms uses them.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the probe's bound: the published dense peak of the route each leg takes
+# (3xTF32 spends three TF32 products on one f32 product)
+PROBE_PEAK_FLOPS = {"f32": PEAK_FP32_FLOPS, "f32_3xtf32": 495e12 / 3, "bf16": 989e12}
+# probe kernel vs plain, relative to max |plain|: f32 and bf16 sums in another
+# order (bf16 inputs are exact in f32, and so are their products); 3xTF32
+# also drops the lo*lo term (~2^-22 relative)
+PROBE_TOL = {"f32": 1e-5, "f32_3xtf32": 1e-4, "bf16": 1e-5}
+BLOCK_TOL = 1e-6  # blocked vs unblocked engine scores: the kernel scores each print alone
 TOL = 1e-4  # kernel vs plain: float32 sums over 176 channels x 1156 taps in another order
 PROBES = 56  # probes per scoring call on the main path: 56 x 25 variants = 1400 rows
 REPS = 2     # timed calls after one warm-up
+BLOCK = 128  # gallery_blocks: three blocks of the G = 300 bench gallery, the last of 44
+G_10K, BLOCK_10K = 10240, 2048  # bench_10k: five blocks
 
 ROTATIONS = [-15, -9, -3, 3, 9, 15, 180]
 SCALES = [1.02, 1.04, 1.08]
@@ -61,20 +93,13 @@ def emit(obj: dict) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean wall time of ``fn`` on the card over ``reps`` runs after one
-    warm-up, from CUDA events."""
+    """Mean time of ``fn`` on the card over ``reps`` runs after one warm-up,
+    from CUDA events."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from shoeprint_image_retrieval_torch.utils.tracing import device_ms
+
+    return device_ms(fn, reps, torch.device("cuda"))
 
 
 def phase_build() -> dict:
@@ -82,11 +107,13 @@ def phase_build() -> dict:
 
     t0 = time.perf_counter()
     out = {"phase": "build", "sources": {}}
-    for src in sorted(build.CSRC.glob("*.cu")):
-        seconds, report = build.compile_source(src.stem)
+    names = sorted(src.stem for src in build.CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(len(names)) as pool:
+        results = list(pool.map(build.compile_source, names))
+    for name, (seconds, report) in zip(names, results):
         lines = [ln.strip() for ln in report.splitlines()
                  if "registers" in ln or "spill" in ln or "smem" in ln]
-        out["sources"][src.stem] = {"nvcc_s": seconds, "ptxas": lines}
+        out["sources"][name] = {"nvcc_s": seconds, "ptxas": lines}
     out["wall_s"] = time.perf_counter() - t0
     return out
 
@@ -348,6 +375,146 @@ def phase_main_path(tmp: Path, device: str = "cuda", gallery: int = 120,
     }, launches
 
 
+def phase_mxu_probe(device: str = "cuda") -> tuple[dict, int]:
+    """The probe's measurement path, then every leg held against its plain
+    version and timed beside it."""
+    import torch
+
+    from shoeprint_image_retrieval_torch.benchmarks import mxu_probe
+    from shoeprint_image_retrieval_torch.ops import mma_probe as mp
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    mp.launch_mma.launches = 0
+    path = mxu_probe.probe_kernel(device=device)
+    launches = mp.launch_mma.launches
+    if launches < 1:
+        raise AssertionError("the probe path did not launch the probe kernel")
+    legs = []
+    for r in path:
+        prec, n, k, lanes, y_iters, grid = (r[key] for key in
+                                            ("precision", "n", "k", "lanes", "y_iters", "grid"))
+        a, b = mxu_probe.probe_inputs(n, k, lanes, prec, dev)
+        got = mp.launch_mma(a, b, y_iters, grid, prec)
+        want = mp.probe_plain(a, b, y_iters, grid)
+        abs_err = float((got - want).abs().max())
+        rel_err = abs_err / float(want.abs().max())
+        if not bool(torch.isfinite(got).all()) or rel_err > PROBE_TOL[prec]:
+            raise AssertionError(f"probe {prec} {r['shape']}: relative err {rel_err} "
+                                 f"> {PROBE_TOL[prec]}")
+        plain_ms = cuda_ms(lambda: mp.probe_plain(a, b, y_iters, grid), REPS)
+        # yardstick: y_iters cuBLAS products of the (grid, n, k) stack in the
+        # leg's input dtype (TF32 off for f32); the port never calls it
+        stack = a.expand(grid, n, k).contiguous()
+        library_ms = cuda_ms(lambda: [torch.matmul(stack, b) for _ in range(y_iters)], REPS)
+        del stack
+        flop = mp.probe_flop(n, k, lanes, y_iters, grid)
+        moved = a.numel() * a.element_size() + b.numel() * b.element_size() + got.numel() * 4
+        t_ops = flop / PROBE_PEAK_FLOPS[prec] * 1e3
+        t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+        legs.append({**r, "max_abs_err": abs_err, "max_rel_err": rel_err, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "flop": flop, "bytes": moved,
+                     "bound_share": max(t_ops, t_bytes) / r["ms"]})
+        del got, want
+    matmul = mxu_probe.probe_matmul(device=device)
+    return {"phase": "mxu_probe", "launches": launches, "geometry": mp.tile_geometry(),
+            "legs": legs, "matmul_4096": matmul,
+            "wall_s": time.perf_counter() - t0}, launches
+
+
+def phase_bench(device: str = "cuda") -> dict:
+    """The port's bench.py at full width, Q = PROBES."""
+    from shoeprint_image_retrieval_torch import bench
+    from shoeprint_image_retrieval_torch.ops import ncc_kernel
+
+    t0 = time.perf_counter()
+    ncc_kernel.launch_ncc.launches = 0
+    result = bench.run(device=device, q=PROBES)
+    return {"phase": "bench", **result, "ncc_launches": ncc_kernel.launch_ncc.launches,
+            "wall_s": time.perf_counter() - t0}
+
+
+def phase_gallery_blocks(device: str = "cuda") -> dict:
+    """Pipeline._score_cluster on the bench workload with gallery_block 0
+    and BLOCK, rank_on_device off and on: scores within BLOCK_TOL,
+    identical ranks."""
+    import numpy as np
+    import torch
+
+    from shoeprint_image_retrieval_torch import bench
+    from shoeprint_image_retrieval_torch.device import free_bytes
+    from shoeprint_image_retrieval_torch.metrics import ranks_from_scores
+    from shoeprint_image_retrieval_torch.ops import ncc_kernel
+    from shoeprint_image_retrieval_torch.retrieval.engine import DeviceScores
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    w = bench.make_workload(q=PROBES)
+    q_in = torch.from_numpy(bench.draw_probe_maps(w)).to(dev)
+    g_in = torch.from_numpy(w["gal"]).to(dev)
+    n_q, n_g = len(w["q_sizes"]), len(w["g_sizes"])
+    runs, ref = [], None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_blocks_") as tmp:
+        for i, (gb, rank_dev) in enumerate(((0, False), (BLOCK, False), (BLOCK, True),
+                                            (0, True))):
+            root = Path(tmp) / str(i)
+            root.mkdir()
+            pipe = bench.engine_pipeline(root, w["pb"], dev)
+            pipe.config["tpu"]["gallery_block"] = gb
+            pipe.config["tpu"]["rank_on_device"] = rank_dev
+            t1 = time.perf_counter()
+            scores = pipe._score_cluster(q_in, w["q_sizes"], g_in, w["g_sizes"])
+            if rank_dev:
+                if not isinstance(scores, DeviceScores):
+                    raise AssertionError("rank_on_device did not keep the scores on the device")
+                mat = scores.materialize()
+            else:
+                mat = scores
+            seconds = time.perf_counter() - t1
+            if ref is None:
+                ref = mat
+                # two sets of true columns: each row's best print and seeded random ones
+                pairs = [np.argmax(ref, axis=1),
+                         np.random.default_rng(5).integers(0, n_g, n_q)]
+            rank_sets = [scores.ranks(p) if rank_dev else ranks_from_scores(mat, p)
+                         for p in pairs]
+            if i == 0:
+                ref_ranks = rank_sets
+            err = float(np.abs(mat - ref).max())
+            if mat.shape != (n_q, n_g) or not np.isfinite(mat).all() or err > BLOCK_TOL:
+                raise AssertionError(f"gallery_block={gb} rank_on_device={rank_dev}: "
+                                     f"scores differ by {err}")
+            for got, want in zip(rank_sets, ref_ranks):
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"gallery_block={gb} rank_on_device={rank_dev}: "
+                                         f"ranks differ")
+            runs.append({"gallery_block": gb, "rank_on_device": rank_dev,
+                         "blocks": pipe.gallery_blocks_scored, "score_s": seconds,
+                         "max_abs_diff": err})
+        # the auto block at a 10,240-print gallery of these prints, with the
+        # engine's resident bytes for one PB-probe batch's stack kept across blocks
+        c, hraw = w["gal"].shape[1], w["gal"].shape[-1]
+        hk = int(w["canvas"] * max(bench.SCALES)) - 4  # the kernel canvas, 34 x 34
+        n_rows = w["pb"] * 25
+        per_print = ncc_kernel.gallery_block_bytes_per_print(c, hraw, hraw, n_rows)
+        free = free_bytes(dev)
+        auto = ncc_kernel.auto_gallery_block(G_10K, per_print, free, n_rows * c * hk * hk * 4, 1)
+    return {"phase": "gallery_blocks", "prints": n_g, "probes": n_q, "runs": runs,
+            "auto_block": {"gallery": G_10K, "block": auto, "bytes_per_print": per_print,
+                           "free_bytes": free, "mem_get_info": torch.cuda.mem_get_info(dev)},
+            "wall_s": time.perf_counter() - t0}
+
+
+def phase_bench_10k(device: str = "cuda") -> dict:
+    from shoeprint_image_retrieval_torch.benchmarks import bench_10k
+
+    t0 = time.perf_counter()
+    result = bench_10k.run(g=G_10K, block=BLOCK_10K, pb=128, device=device)
+    return {"phase": "bench_10k", **result, "wall_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
 
@@ -355,7 +522,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
     from shoeprint_image_retrieval_torch.device import resolve_device
-    from shoeprint_image_retrieval_torch.ops import ncc_kernel
+    from shoeprint_image_retrieval_torch.ops import mma_probe, ncc_kernel
 
     resolve_device("cuda")
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -366,6 +533,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         main_path, launches = phase_main_path(Path(tmp))
     emit(main_path)
+    probe, probe_launches = phase_mxu_probe()
+    emit(probe)
+    emit(phase_bench())
+    emit(phase_gallery_blocks())
+    emit(phase_bench_10k())
+    primary = probe["legs"][0]  # the JAX default shape, f32: probe_pallas's first leg
     emit({"kernels": [{
         "name": "ncc_score",
         "route": "cuda",
@@ -378,6 +551,23 @@ def main() -> int:
         "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],
+    }, {
+        "name": "mma_probe",
+        "route": "cuda",
+        "source": mma_probe.SOURCE,
+        "replaces": mma_probe.REPLACES,
+        "launches": probe_launches,
+        "max_abs_err": max(leg["max_abs_err"] for leg in probe["legs"]),
+        "max_rel_err": max(leg["max_rel_err"] for leg in probe["legs"]),
+        "ms": primary["ms"],
+        "plain_ms": primary["plain_ms"],
+        "bound_ms": primary["bound_ms"],
+        "bound_by": primary["bound_by"],
+        "library_ms": primary["library_ms"],
+        "leg": f"{primary['precision']} {primary['shape']}",
+        "legs": {f"{leg['precision']} {leg['shape']}": {
+            key: leg[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms", "tflops")}
+            for leg in probe["legs"]},
     }]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

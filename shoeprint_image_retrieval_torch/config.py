@@ -8,16 +8,18 @@ Same parse as ``shoeprint_image_retrieval_tpu/config.py``: plain TOML, the
 :func:`check_supported` says which ``[tpu]`` keys this port honours:
 
 * honoured: ``variant_mode``, ``extraction_batch``, ``probe_batch``,
-  ``cache_dir``, ``clahe_host`` and ``ncc_backend`` (``auto``/``pallas``
+  ``cache_dir``, ``clahe_host``, ``ncc_backend`` (``auto``/``pallas``
   = the CUDA kernel on a card, ``direct`` = its plain PyTorch version; on
-  the CPU all three are the plain version);
+  the CPU all three are the plain version), ``gallery_block`` (prints per
+  gallery block; 0 = the largest block that fits the card's free memory,
+  one block on the CPU) and ``rank_on_device`` (scores stay on the device
+  and ranks are counted there; ties in height-sorted column order);
 * read and ignored, because they only shape TPU speed: ``prewarm``,
-  ``pipeline_clusters``, ``gallery_block``, ``mesh_shape`` <= 1 and
-  ``profile_dir``;
+  ``pipeline_clusters``, ``mesh_shape`` <= 1 and ``profile_dir``;
 * refused with ``NotImplementedError`` naming the ROADMAP item that will
   port them: ``ncc_backend="fft"``, ``mesh_shape`` > 1, a non-empty
-  ``fusion_blocks``, ``pruned_scoring``, ``rank_on_device``,
-  ``precision``/``cache_dtype`` = ``"bfloat16"`` and ``clahe_host=false``.
+  ``fusion_blocks``, ``pruned_scoring``, ``precision``/``cache_dtype`` =
+  ``"bfloat16"`` and ``clahe_host=false``.
 """
 
 from __future__ import annotations
@@ -87,8 +89,8 @@ def check_supported(config: dict) -> None:
         raise not_ported("tpu.fusion_blocks", 7, "fusion and pruning")
     if tpu["pruned_scoring"]:
         raise not_ported("tpu.pruned_scoring", 7, "fusion and pruning")
-    if tpu["rank_on_device"]:
-        raise not_ported("tpu.rank_on_device", 6, "on-device ranks")
+    if int(tpu["gallery_block"]) < 0:
+        raise ValueError(f"tpu.gallery_block must be >= 0, got {tpu['gallery_block']!r}")
     for key in ("precision", "cache_dtype"):
         if tpu[key] == "bfloat16":
             raise not_ported(f"tpu.{key} = 'bfloat16'", 10, "bf16 precision")

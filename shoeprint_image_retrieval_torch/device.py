@@ -34,3 +34,11 @@ def resolve_device(name: str | torch.device = "cuda") -> torch.device:
         )
     set_float32_precision()
     return dev
+
+
+def free_bytes(dev: torch.device) -> int:
+    """Device bytes this process can still allocate: what CUDA reports free
+    (``torch.cuda.mem_get_info``) plus what PyTorch's caching allocator
+    holds reserved but unallocated, which CUDA counts as used."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    return free + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)

@@ -32,6 +32,8 @@ import torch.nn.functional as F
 
 from .boxsum import EDGE_CROP, integral_image, masked_demean
 
+CHANNEL_BLOCK = 8  # the cache pads channels to a multiple of this
+
 
 class DirectGalleryCache(NamedTuple):
     """Channel-major direct-scoring cache.
@@ -49,7 +51,7 @@ class DirectGalleryCache(NamedTuple):
 
 
 def build_direct_cache(
-    prints: torch.Tensor, valid_hw: torch.Tensor, channel_block: int = 8
+    prints: torch.Tensor, valid_hw: torch.Tensor, channel_block: int = CHANNEL_BLOCK
 ) -> DirectGalleryCache:
     """(G, C, Hraw, Wraw) zero-padded prints -> cache (crops 2 px per edge,
     pads channels to a multiple of ``channel_block``)."""

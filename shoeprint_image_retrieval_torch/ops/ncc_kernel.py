@@ -21,7 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .boxsum import EDGE_CROP
 from .ncc_direct import (
+    CHANNEL_BLOCK,
     DirectGalleryCache,
     PackedVariants,
     VariantLayout,
@@ -134,6 +136,35 @@ def launch_geometry(hb: int, wb: int, hk: int, wk: int) -> dict:
         raise RuntimeError(f"no launch geometry for Hb={hb} Wb={wb} hk={hk} wk={wk}")
     return {"rows_per_block": nt.value, "y_per_block": ty.value,
             "threads": threads.value, "smem_bytes": smem.value}
+
+
+def gallery_block_bytes_per_print(channels: int, hraw: int, wraw: int, n_rows: int) -> int:
+    """Device bytes one gallery print costs while its block is scored:
+    its raw (C, Hraw, Wraw) f32 maps moved to the device, the direct cache
+    (p0 (C_pad, Hb, Wb) and two (C_pad, Hb+1, Wb+1) integral images, f32),
+    two p0-sized temporaries of the cache build, and the kernel's (N, G)
+    ``best`` (int32) and ``out`` (f32) buffers."""
+    c_pad = -(-channels // CHANNEL_BLOCK) * CHANNEL_BLOCK
+    hb, wb = hraw - 2 * EDGE_CROP, wraw - 2 * EDGE_CROP
+    floats = channels * hraw * wraw + 3 * c_pad * hb * wb + 2 * c_pad * (hb + 1) * (wb + 1)
+    return 4 * floats + 8 * n_rows
+
+
+# device bytes left free beyond the model: allocator rounding, cuDNN and
+# cuBLAS workspaces, the CUDA context's own allocations
+AUTO_BLOCK_MARGIN_BYTES = 4 * 1024**3
+
+
+def auto_gallery_block(g_total: int, bytes_per_print: int, free_bytes: int,
+                       stack_bytes: int = 0, kept_stacks: int = 0,
+                       margin_bytes: int = AUTO_BLOCK_MARGIN_BYTES) -> int:
+    """The largest gallery block (prints, at least 1, at most ``g_total``)
+    whose bytes fit ``free_bytes`` (``device.free_bytes``) less a margin
+    and what stays resident while it is scored: the ``kept_stacks`` variant
+    stacks of ``stack_bytes`` each that are kept across blocks, one stack's
+    kernel-layout copy and one batch's build temporaries."""
+    room = free_bytes - (kept_stacks + 2) * stack_bytes - margin_bytes
+    return max(1, min(g_total, room // max(1, bytes_per_print)))
 
 
 def score_ncc(

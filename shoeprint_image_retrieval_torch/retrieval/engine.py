@@ -6,16 +6,20 @@ retrieval/engine.py`` (reference run.py:17-34 + similarity.py:129-375):
 * host ingest (``data/loader.py``) and native CLAHE (``data/native_ingest``);
 * normalisation and masked batched extraction through the truncated
   backbone (``ops/preprocess.py``, ``models/``);
-* the gallery cache: demeaned prints + integral images, height-sorted, one
-  block (``ops/ncc_direct.build_direct_cache``);
+* the gallery cache: demeaned prints + integral images of the
+  height-sorted gallery, built per block of ``tpu.gallery_block`` prints
+  (``ops/ncc_direct.build_direct_cache``; 0 = the largest block that fits
+  the card's free memory, one block on the CPU);
 * per probe batch, a class-major variant stack (PIL-exact rotation gathers
   and bicubic scale matrices, ``ops/warp.py``) scored by the fused NCC
   kernel (``ops/ncc_kernel.score_ncc``); max over variants floored at 0;
-* host ranks and the S-line (``metrics.py``).
+* host ranks and the S-line (``metrics.py``), or with
+  ``tpu.rank_on_device`` the scores left on the device and ranked there
+  (:class:`DeviceScores`, ``ops/topk.py``).
 
 Not carried over (ROADMAP.md, 'Still to port'): streamed ingest, device
-CLAHE, gallery blocking and the TPU sizing helpers, prewarm, cluster
-lookahead, on-device ranks, fusion, pruning, the mesh.
+CLAHE, the TPU sizing helpers, prewarm, cluster lookahead, fusion, pruning,
+the mesh.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from ..data import native_ingest
 from ..data.discovery import Dataset, parse_image_id
 from ..data.loader import load_images, pack_canvas
 from ..data.planner import PlannerConfig, plan_clusters, read_header_sizes
-from ..device import resolve_device
+from ..device import free_bytes, resolve_device
 from ..metrics import ranks_from_scores
 from ..models.registry import get_backbone
 from ..models.weights import build_model
@@ -43,16 +47,48 @@ from ..ops.ncc_direct import (
     fold_template,
     score_direct,
 )
-from ..ops.ncc_kernel import score_ncc
+from ..ops.ncc_kernel import auto_gallery_block, gallery_block_bytes_per_print, score_ncc
 from ..ops.preprocess import normalize_batch
+from ..ops.topk import ranks_on_device
 from ..ops.warp import pil_resize_size, resample_weights, rotate_index_map
 from ..utils.tracing import stage_timer
 from .gallery import GalleryFeatureCache
 
 # Probes per scoring call when tpu.probe_batch is 0: 56 probes x 25 variants
 # = 1400 variant rows, the TPU engine's main-path depth. Re-deriving it for
-# the H100 is ROADMAP work ('gallery blocking and H100 sizing').
+# the H100 is ROADMAP work ('H100 sizing').
 DEFAULT_PROBE_BATCH = 56
+# With more than one gallery block, every probe batch's variant stack is
+# built once and kept across blocks while all of them take less than this
+# (the JAX engine's cap, engine.py:1292-1311); above it they are rebuilt
+# per block.
+PREBUILD_BYTES = 6e9
+
+
+@dataclass
+class DeviceScores:
+    """A cluster's (Q, G) scores left on the device (``tpu.rank_on_device``).
+
+    ``buf`` keeps the gallery columns in the engine's height-sorted order;
+    :meth:`ranks` counts on the device (``ops/topk.ranks_on_device``), so
+    only Q int32s reach the host. Tie convention: under an exact tie with
+    the true match's score, tied columns count in height-sorted column
+    order, not the original gallery order (the JAX engine's behaviour,
+    its ``DeviceScores``); untied scores rank as ``metrics.ranks_from_scores``.
+    """
+
+    buf: torch.Tensor       # (Q, G) f32 on the device, height-sorted columns
+    inv_order: np.ndarray   # original gallery index -> sorted column
+
+    def ranks(self, matching_pairs: Sequence[int]) -> np.ndarray:
+        sorted_pairs = torch.as_tensor(self.inv_order[np.asarray(matching_pairs)],
+                                       device=self.buf.device)
+        return ranks_on_device(self.buf, sorted_pairs).cpu().numpy()
+
+    def materialize(self) -> np.ndarray:
+        """The full matrix in the original gallery order (the host path's
+        un-permutation)."""
+        return self.buf.cpu().numpy()[:, self.inv_order]
 
 
 @dataclass
@@ -62,7 +98,9 @@ class ClusterOutput:
     n_queries: int
     block: int
     scale: float
-    scores: np.ndarray  # (Q, G) max-over-variant scores, original gallery order
+    # (Q, G) max-over-variant scores in the original gallery order, or with
+    # tpu.rank_on_device the DeviceScores they stay in (materialize() pulls them)
+    scores: np.ndarray | DeviceScores
 
 
 @dataclass
@@ -223,6 +261,7 @@ class Pipeline:
         self.weights_dir = weights_dir
         self._models: dict[int, torch.nn.Module] = {}
         self.stage_seconds: dict[str, float] = {}
+        self.gallery_blocks_scored = 0  # gallery blocks scored, over all clusters
         self._gcache_params = (
             tuple(config["dataset"]["crop"]),
             model_cfg["clahe_clip_limit"],
@@ -311,18 +350,38 @@ class Pipeline:
         comp = self.config["comparison"]
         return variant_plan(q_valid, feat_canvas, comp["rotations"] or [], comp["scales"] or [])
 
+    def _gallery_block(self, g_total: int, bytes_per_print: int, stack_bytes: int,
+                       kept_stacks: int) -> int:
+        """Prints per gallery block: ``tpu.gallery_block`` when it is set;
+        for 0, the largest block that fits the card's free memory
+        (:func:`~..device.free_bytes`,
+        :func:`~..ops.ncc_kernel.auto_gallery_block`), and on the CPU one
+        block."""
+        gb = int(self.config["tpu"]["gallery_block"])
+        if gb > 0:
+            return min(gb, g_total)
+        if self.device.type != "cuda":
+            return g_total
+        return auto_gallery_block(g_total, bytes_per_print, free_bytes(self.device),
+                                  stack_bytes, kept_stacks)
+
     def _score_cluster(
         self,
         q_maps: torch.Tensor,
         q_valid: np.ndarray,
-        g_maps: torch.Tensor,
+        g_maps: torch.Tensor | np.ndarray,
         g_valid: np.ndarray,
-    ) -> np.ndarray:
+    ) -> np.ndarray | DeviceScores:
         """(Q, G) max-over-variant score matrix for one cluster.
 
-        One gallery block, height-sorted (columns are un-permuted on return);
-        probes in batches of ``probe_batch``, the tail batch repeating its
-        last probe so every batch has the same shapes.
+        The gallery is height-sorted and scored in blocks of
+        :meth:`_gallery_block` prints, one direct cache per block, each
+        block's maps moved to the device as it is scored (``g_maps`` may lie
+        on the host or the device); score columns are written into place
+        and un-permuted on return. Probes go in batches of ``probe_batch``,
+        the tail batch repeating its last probe so every batch has the same
+        shapes. With ``tpu.rank_on_device`` the scores stay on the device
+        and a :class:`DeviceScores` is returned.
         """
         dev = self.device
 
@@ -340,39 +399,74 @@ class Pipeline:
         layout = VariantLayout(class_counts, pb)
         # score_ncc takes the plain version itself for CPU tensors
         scorer = score_direct if self.config["tpu"]["ncc_backend"] == "direct" else score_ncc
+        rank_dev = bool(self.config["tpu"]["rank_on_device"])
         q_valid = np.asarray(q_valid)
         g_valid = np.asarray(g_valid)
+        g_maps = torch.as_tensor(g_maps)
+        g_total = len(g_valid)
+
+        starts = list(range(0, n_q, pb))
+        stack_bytes = layout.n_variants * true_c * kernel_hw[0] * kernel_hw[1] * 4
+        gb = self._gallery_block(
+            g_total,
+            gallery_block_bytes_per_print(true_c, g_maps.shape[2], g_maps.shape[3],
+                                          layout.n_variants),
+            stack_bytes, min(len(starts), max(1, int(PREBUILD_BYTES // stack_bytes))),
+        )
+        n_blocks = -(-g_total // gb)
+        prebuild = n_blocks > 1 and len(starts) * stack_bytes < PREBUILD_BYTES
+        order = np.argsort(-g_valid[:, 0], kind="stable")
+        order_g = torch.as_tensor(order, device=g_maps.device)
+        tables = [on_dev(a) for a in (q_valid, plan.rot_idx, plan.rot_ok, plan.wv,
+                                      plan.wh, plan.scale_hw)]
+
+        def variant_batch(lo: int):
+            take = np.minimum(np.arange(lo, lo + pb), n_q - 1)
+            take_d = on_dev(take)
+            kernels = build_kernels(
+                q_maps.index_select(0, take_d),
+                *[t.index_select(0, take_d) for t in tables],
+                kernel_hw=kernel_hw,
+                include_rots_unscaled=include_rots_unscaled,
+                n_scl=plan.n_scl,
+            )
+            wins, uniq, inv = batch_windows(q_valid[take], plan.scale_hw[take], plan.n_scl)
+            return PackedVariants(kernels, on_dev(wins)), on_dev(uniq), on_dev(inv)
 
         with torch.inference_mode():
-            with self._stage("cache"):
-                order = np.argsort(-g_valid[:, 0], kind="stable")
-                cache = build_direct_cache(
-                    g_maps.index_select(0, on_dev(order)).to(torch.float32),
-                    on_dev(g_valid[order]),
-                )
-            tables = [on_dev(a) for a in (q_valid, plan.rot_idx, plan.rot_ok, plan.wv,
-                                          plan.wh, plan.scale_hw)]
-            out = np.zeros((n_q, len(g_valid)), np.float32)
-            with self._stage("score"):
-                for lo in range(0, n_q, pb):
-                    take = np.minimum(np.arange(lo, lo + pb), n_q - 1)
-                    take_d = on_dev(take)
-                    kernels = build_kernels(
-                        q_maps.index_select(0, take_d),
-                        *[t.index_select(0, take_d) for t in tables],
-                        kernel_hw=kernel_hw,
-                        include_rots_unscaled=include_rots_unscaled,
-                        n_scl=plan.n_scl,
+            if rank_dev:
+                buf = torch.zeros((n_q, g_total), dtype=torch.float32, device=dev)
+            else:
+                out = np.zeros((n_q, g_total), np.float32)
+            stacks = {}
+            if prebuild:
+                with self._stage("score"):
+                    stacks = {lo: variant_batch(lo) for lo in starts}
+            for b_lo in range(0, g_total, gb):
+                b_hi = min(b_lo + gb, g_total)
+                with self._stage("cache"):
+                    cache = build_direct_cache(
+                        g_maps.index_select(0, order_g[b_lo:b_hi]).to(dev, torch.float32),
+                        on_dev(g_valid[order[b_lo:b_hi]]),
                     )
-                    wins, uniq, inv = batch_windows(q_valid[take], plan.scale_hw[take],
-                                                    plan.n_scl)
-                    scores = scorer(cache, PackedVariants(kernels, on_dev(wins)), layout,
-                                    true_c, on_dev(uniq), on_dev(inv))
-                    n_take = min(pb, n_q - lo)
-                    out[lo : lo + n_take] = regroup_max(scores, layout).cpu().numpy()[:n_take]
-                    if self.verbose:
-                        print(f"  scored {lo + n_take}/{n_q} queries")
-        return out[:, np.argsort(order)]
+                with self._stage("score"):
+                    for lo in starts:
+                        packed, uniq, inv = stacks[lo] if prebuild else variant_batch(lo)
+                        scores = scorer(cache, packed, layout, true_c, uniq, inv)
+                        n_take = min(pb, n_q - lo)
+                        rows = regroup_max(scores, layout)[:n_take]
+                        if rank_dev:
+                            buf[lo : lo + n_take, b_lo:b_hi] = rows
+                        else:
+                            out[lo : lo + n_take, b_lo:b_hi] = rows.cpu().numpy()
+                        if self.verbose and b_hi == g_total:
+                            print(f"  scored {lo + n_take}/{n_q} queries")
+                del cache
+                self.gallery_blocks_scored += 1
+        inv_order = np.argsort(order)
+        if rank_dev:
+            return DeviceScores(buf, inv_order)
+        return out[:, inv_order]
 
     def _cluster_features(self, plan):
         """Ingest + extract one cluster: (q_maps, q_valid, g_maps, g_valid, q_files)."""
@@ -412,7 +506,10 @@ class Pipeline:
         q_maps, q_valid, g_maps, g_valid, q_files = self._cluster_features(plan)
         scores = self._score_cluster(q_maps, q_valid, g_maps, g_valid)
         pairs = self.dataset.matching_pairs(q_files)
-        ranks = ranks_from_scores(scores, pairs)
+        if isinstance(scores, DeviceScores):
+            ranks = scores.ranks(pairs)
+        else:
+            ranks = ranks_from_scores(scores, pairs)
         if self.verbose:
             for qf, rank in zip(q_files, ranks):
                 print(f"Print {parse_image_id(qf, self.dataset.type)} "

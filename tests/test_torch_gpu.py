@@ -1,4 +1,4 @@
-"""The CUDA kernel on the card: held against its plain PyTorch version.
+"""The CUDA kernels on the card: each held against its plain PyTorch version.
 
 Needs an NVIDIA GPU and ``nvcc``; every test skips without a CUDA device.
 This file imports no JAX, so it runs on a machine without it:
@@ -11,6 +11,7 @@ import pytest
 import torch
 from PIL import Image
 
+from shoeprint_image_retrieval_torch.ops import mma_probe as mp
 from shoeprint_image_retrieval_torch.ops import ncc_kernel
 from shoeprint_image_retrieval_torch.ops.ncc_direct import (
     PackedVariants,
@@ -23,6 +24,9 @@ from shoeprint_image_retrieval_torch.ops.ncc_direct import (
 pytestmark = pytest.mark.gpu
 
 TOL = 1e-4  # float32 channel and tap sums in another order than cuDNN's
+# probe kernel vs plain, relative to max |plain|: f32 and bf16 sums in another
+# order (bf16 products are exact in f32); 3xTF32 also drops the lo*lo term
+PROBE_TOL = {"f32": 1e-5, "f32_3xtf32": 1e-4, "bf16": 1e-5}
 
 
 def _need_card():
@@ -99,6 +103,22 @@ def test_pipeline_kernel_ranks_equal_plain(tmp_path):
     from shoeprint_image_retrieval_torch.config import load_config
     from shoeprint_image_retrieval_torch.retrieval.engine import Pipeline
 
+    cfg_path = _pipeline_config(tmp_path)
+    outs = {}
+    for backend in ("auto", "direct"):
+        cfg = load_config(cfg_path)
+        cfg["tpu"]["ncc_backend"] = backend
+        before = ncc_kernel.launch_ncc.launches
+        outs[backend] = list(Pipeline(cfg, weights_dir=None, verbose=False, device="cuda").run())
+        launched = ncc_kernel.launch_ncc.launches - before
+        assert (launched > 0) == (backend == "auto")
+    for k, p in zip(outs["auto"], outs["direct"]):
+        np.testing.assert_array_equal(k.ranks, p.ranks)
+        np.testing.assert_allclose(k.scores, p.scores, atol=TOL)
+
+
+def _pipeline_config(tmp_path):
+    """A tiny Impress-layout dataset (8 prints, 4 queries) and its run.toml."""
     rng = np.random.default_rng(11)
     root = tmp_path / "data"
     (root / "Gallery").mkdir(parents=True)
@@ -138,14 +158,68 @@ scales = [1.04]
 [tpu]
 probe_batch = 3
 """)
+    return cfg_path
+
+
+@pytest.mark.parametrize("precision", ["f32", "f32_3xtf32", "bf16"])
+@pytest.mark.parametrize(
+    "n,k,lanes,y_iters,grid",
+    [
+        (24, 37, 16, 3, 2),       # ragged everywhere, one block
+        (70, 1156, 130, 2, 3),    # the probe's depth; ragged rows and lanes, two lane blocks
+        (128, 64, 128, 1, 1),     # whole tiles
+        (16, 8, 8, 0, 2),         # no products: zeros
+    ],
+)
+def test_probe_kernel_matches_plain(precision, n, k, lanes, y_iters, grid):
+    _need_card()
+    from shoeprint_image_retrieval_torch.benchmarks.mxu_probe import probe_inputs
+
+    a, b = probe_inputs(n, k, lanes, precision, torch.device("cuda"))
+    before = mp.launch_mma.launches
+    got = mp.mma_probe(a, b, y_iters, grid, precision)
+    torch.cuda.synchronize()
+    assert mp.launch_mma.launches == before + 1
+    want = mp.probe_plain(a, b, y_iters, grid)
+    assert got.shape == want.shape == (grid, n, lanes)
+    assert torch.isfinite(got).all()
+    scale = max(float(want.abs().max()), 1e-30)
+    assert float((got - want).abs().max()) / scale <= PROBE_TOL[precision]
+    assert torch.equal(got[0], got[-1])  # every step computes the same sum
+
+
+def test_probe_kernel_rejects_bad_operands():
+    _need_card()
+    a = torch.zeros((8, 16), device="cuda")
+    b = torch.zeros((16, 8), device="cuda")
+    with pytest.raises(TypeError):
+        mp.launch_mma(a, b, 1, 1, "bf16")
+    with pytest.raises(ValueError):
+        mp.launch_mma(a, b.t(), 1, 1, "f32")  # (8, 16) does not chain with (8, 16)
+    with pytest.raises(ValueError):
+        mp.launch_mma(a, b.t().contiguous().t(), 1, 1, "f32")  # not contiguous
+    with pytest.raises(ValueError):
+        mp.launch_mma(a, b.cpu(), 1, 1, "f32")
+
+
+def test_blocked_engine_equals_unblocked(tmp_path):
+    """gallery_block and rank_on_device on the card: identical ranks and
+    scores to one block with host ranks."""
+    _need_card()
+    from shoeprint_image_retrieval_torch.config import load_config
+    from shoeprint_image_retrieval_torch.retrieval.engine import DeviceScores, Pipeline
+
+    cfg_path = _pipeline_config(tmp_path)
     outs = {}
-    for backend in ("auto", "direct"):
+    for gb, rank_dev in ((0, False), (3, False), (3, True), (0, True)):
         cfg = load_config(cfg_path)
-        cfg["tpu"]["ncc_backend"] = backend
-        before = ncc_kernel.launch_ncc.launches
-        outs[backend] = list(Pipeline(cfg, weights_dir=None, verbose=False, device="cuda").run())
-        launched = ncc_kernel.launch_ncc.launches - before
-        assert (launched > 0) == (backend == "auto")
-    for k, p in zip(outs["auto"], outs["direct"]):
-        np.testing.assert_array_equal(k.ranks, p.ranks)
-        np.testing.assert_allclose(k.scores, p.scores, atol=TOL)
+        cfg["tpu"]["gallery_block"] = gb
+        cfg["tpu"]["rank_on_device"] = rank_dev
+        pipe = Pipeline(cfg, weights_dir=None, verbose=False, device="cuda")
+        outs[gb, rank_dev] = list(pipe.run())
+        assert pipe.gallery_blocks_scored == (3 if gb == 3 else 1) * len(pipe.plans)
+    for key, run in outs.items():
+        for o, p in zip(run, outs[0, False]):
+            np.testing.assert_array_equal(o.ranks, p.ranks)
+            scores = o.scores.materialize() if isinstance(o.scores, DeviceScores) else o.scores
+            np.testing.assert_allclose(scores, p.scores, atol=1e-6, rtol=0)

@@ -6,6 +6,7 @@ check runs in a fresh interpreter that refuses ``jax*`` and
 finder, then imports every module of the port and ``chip_smoke.py``.
 """
 
+import json
 import re
 import subprocess
 import sys
@@ -15,7 +16,7 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "shoeprint_image_retrieval_torch"
 
 BLOCKED_IMPORTS = r"""
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -32,15 +33,28 @@ for name in names:
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "shoeprint_image_retrieval_tpu"))
 assert not leaked, leaked
-print(len(names))
+print(json.dumps(names))
 """
+
+# modules added with the measurement path: the probe kernel's wrapper, the
+# benchmarks, on-device ranks and the oracle copy
+MEASUREMENT_MODULES = {
+    "shoeprint_image_retrieval_torch.ops.mma_probe",
+    "shoeprint_image_retrieval_torch.ops.topk",
+    "shoeprint_image_retrieval_torch.retrieval.oracle",
+    "shoeprint_image_retrieval_torch.bench",
+    "shoeprint_image_retrieval_torch.benchmarks.mxu_probe",
+    "shoeprint_image_retrieval_torch.benchmarks.bench_10k",
+}
 
 
 def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", BLOCKED_IMPORTS], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20  # every module of the port was imported
+    names = set(json.loads(proc.stdout.strip().splitlines()[-1]))
+    assert len(names) >= 25  # every module of the port was imported
+    assert MEASUREMENT_MODULES <= names
 
 
 def test_no_source_names_jax_or_the_jax_package():

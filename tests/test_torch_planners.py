@@ -79,9 +79,8 @@ def test_config_loads_like_jax(tmp_path):
     cfg = tload("run.toml")
     check_supported(cfg)
     for key, value in [("mesh_shape", 2), ("fusion_blocks", [6, 4]), ("pruned_scoring", True),
-                       ("rank_on_device", True), ("precision", "bfloat16"),
-                       ("cache_dtype", "bfloat16"), ("ncc_backend", "fft"),
-                       ("clahe_host", False)]:
+                       ("precision", "bfloat16"), ("cache_dtype", "bfloat16"),
+                       ("ncc_backend", "fft"), ("clahe_host", False)]:
         bad = tload("run.toml")
         bad["tpu"][key] = value
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
