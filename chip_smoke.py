@@ -8,17 +8,21 @@ Phases, each printing one JSON line:
 
 1. ``build``: compiles every kernel of the port (``csrc/*.cu``) from the
    sources in the checkout for ``sm_90a``, one ``nvcc`` per source, all
-   started together, with the compiler's register/shared-memory report.
+   started together, with the compiler's register/shared-memory report;
+   fails if the NCC kernel spills registers.
 2. ``kernel``: the fused NCC scorer ``score_ncc`` (the wrapper the engine
-   calls) against its plain PyTorch version on the card, at the main-path
-   shapes (G = 300 prints of 38-46 px raw, C = 176, probes of 28-36 px, a
-   34 x 34 kernel canvas, 25 variants per probe, PB = 56 probes, N = 1400
-   rows), plus the edge cases (zero template, flat print, zero-energy
-   windows, a template larger than the prints). Max |kernel - plain| must be
-   <= 1e-4 and each row's true-match rank identical. Reports the wrapper's
-   time (CUDA events), the plain version's, one PyTorch convolution's (the
-   yardstick, never called by the port) and the least time the card could
-   take (``bound_ms``).
+   calls; a 3xTF32 ``wgmma`` implicit GEMM) against its plain PyTorch
+   version on the card, at the main-path shapes (G = 300 prints of 38-46 px
+   raw, C = 176, probes of 28-36 px, a 34 x 34 kernel canvas, 25 variants
+   per probe, PB = 56 probes, N = 1400 rows), plus the edge cases (zero
+   template, flat print, zero-energy windows, a template larger than the
+   prints). Max |kernel - plain| must be <= 1e-4, each row's true-match
+   rank identical and top-1 identical where the margin is clear. Reports
+   the wrapper's time (CUDA events), the plain version's, one PyTorch
+   convolution's (the yardstick, never called by the port), the least time
+   the card could take at the route's peak (``bound_ms``, 3xTF32 at
+   495 / 3 TFLOP/s) and on the CUDA cores (``bound_fp32_ms``), the FLOP the
+   kernel executes for its tile plan and the launch geometry.
 3. ``main_path``: the synthetic Impress fixture
    (``scripts/make_synthetic_impress.generate``, 120 prints, 30 queries) on
    ``benchmarks/synthetic_impress.toml``'s settings through the port's
@@ -59,6 +63,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -70,15 +75,23 @@ from pathlib import Path
 # device-memory bandwidth; bound_ms uses them.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# 3xTF32 spends three TF32 tensor-core products (495 TFLOP/s dense) on one
+# f32 product: the NCC kernel's route peak
+PEAK_3XTF32_FLOPS = 495e12 / 3
 # the probe's bound: the published dense peak of the route each leg takes
 # (3xTF32 spends three TF32 products on one f32 product)
-PROBE_PEAK_FLOPS = {"f32": PEAK_FP32_FLOPS, "f32_3xtf32": 495e12 / 3, "bf16": 989e12}
+PROBE_PEAK_FLOPS = {"f32": PEAK_FP32_FLOPS, "f32_3xtf32": PEAK_3XTF32_FLOPS, "bf16": 989e12}
 # probe kernel vs plain, relative to max |plain|: f32 and bf16 sums in another
 # order (bf16 inputs are exact in f32, and so are their products); 3xTF32
 # also drops the lo*lo term (~2^-22 relative)
 PROBE_TOL = {"f32": 1e-5, "f32_3xtf32": 1e-4, "bf16": 1e-5}
 BLOCK_TOL = 1e-6  # blocked vs unblocked engine scores: the kernel scores each print alone
-TOL = 1e-4  # kernel vs plain: float32 sums over 176 channels x 1156 taps in another order
+# kernel vs plain: float32 sums over 176 channels x 1156 taps in another
+# order, and 3xTF32 products (lo*lo dropped, ~2^-22 relative a product)
+TOL = 1e-4
+# the kernel against a float64 plain version on this many of the main-path
+# prints: its error must stay under half of a plain TF32 path's
+PRECISION_PRINTS = 16
 PROBES = 56  # probes per scoring call on the main path: 56 x 25 variants = 1400 rows
 REPS = 2     # timed calls after one warm-up
 BLOCK = 128  # gallery_blocks: three blocks of the G = 300 bench gallery, the last of 44
@@ -102,6 +115,11 @@ def cuda_ms(fn, reps: int) -> float:
     return device_ms(fn, reps, torch.device("cuda"))
 
 
+def spill_bytes(ptxas_lines: list[str]) -> int:
+    """Spill stores plus spill loads over every kernel of one report."""
+    return sum(int(m) for ln in ptxas_lines for m in re.findall(r"(\d+) bytes spill", ln))
+
+
 def phase_build() -> dict:
     from shoeprint_image_retrieval_torch.ops import build
 
@@ -113,8 +131,11 @@ def phase_build() -> dict:
     for name, (seconds, report) in zip(names, results):
         lines = [ln.strip() for ln in report.splitlines()
                  if "registers" in ln or "spill" in ln or "smem" in ln]
-        out["sources"][name] = {"nvcc_s": seconds, "ptxas": lines}
+        out["sources"][name] = {"nvcc_s": seconds, "ptxas": lines,
+                                "spill_bytes": spill_bytes(lines)}
     out["wall_s"] = time.perf_counter() - t0
+    if out["sources"]["ncc_score"]["spill_bytes"]:
+        raise AssertionError(f"ncc_score spills registers: {out['sources']['ncc_score']}")
     return out
 
 
@@ -239,6 +260,36 @@ def needed_flop(row_hw, gvalid, c: int, canvas_hw: tuple[int, int]) -> float:
     return 2.0 * c * float((fh * fw).sum())
 
 
+def float64_errors(cache, packed, layout, c, uniq, inv, got) -> dict:
+    """Max |score - float64 score| over the first PRECISION_PRINTS prints
+    for the kernel's ``got``, the plain version in FP32 and the plain
+    version with cuDNN's TF32 convolutions (the precision 3xTF32 must beat)."""
+    import torch
+
+    from shoeprint_image_retrieval_torch.ops.ncc_direct import (
+        DirectGalleryCache, PackedVariants, score_direct)
+
+    t0 = time.perf_counter()
+    sub = DirectGalleryCache(*(t[:, :PRECISION_PRINTS] for t in cache[:3]),
+                             cache.valid_hw[:PRECISION_PRINTS])
+    exact = score_direct(DirectGalleryCache(*(t.double() for t in sub[:3]), sub.valid_hw),
+                         PackedVariants(packed.kernels.double(), packed.window_hw),
+                         layout, c, uniq, inv)
+    plain = score_direct(sub, packed, layout, c, uniq, inv)
+    tf32_was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = score_direct(sub, packed, layout, c, uniq, inv)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_was
+    kernel = got[:, :PRECISION_PRINTS]
+    errs = {name: float((s.double() - exact).abs().max())
+            for name, s in (("kernel", kernel), ("plain_f32", plain), ("plain_tf32", tf32))}
+    errs["prints"] = PRECISION_PRINTS
+    errs["seconds"] = time.perf_counter() - t0
+    return errs
+
+
 def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: int = 300,
                  c: int = 176) -> dict:
     import numpy as np
@@ -265,6 +316,9 @@ def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: in
     top1_same = np.argmax(got_np, axis=1)[clear] == np.argmax(want_np, axis=1)[clear]
     if not top1_same.all():
         raise AssertionError("top-1 prints differ on rows with a clear margin")
+    err64 = float64_errors(cache, packed, layout, c, uniq, inv, got)
+    if not err64["kernel"] < 0.5 * err64["plain_tf32"]:
+        raise AssertionError(f"the kernel is not well inside plain TF32's error: {err64}")
 
     kernel_ms = cuda_ms(lambda: ncc_kernel.score_ncc(cache, packed, layout, c, uniq, inv), reps)
     plain_ms = cuda_ms(lambda: score_direct(cache, packed, layout, c, uniq, inv), reps)
@@ -276,28 +330,37 @@ def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: in
     library_ms = cuda_ms(lambda: F.conv2d(lib_in, lib_w), reps)
     del lib_in
 
-    # the least time the card could take: the correlation's needed FP32
-    # multiply-adds at the peak FP32 rate, against every input of score_ncc
-    # read once and the output written once at the memory rate
+    # the least time the card could take: the correlation's needed
+    # multiply-adds at the route's peak (3xTF32; FP32 on the CUDA cores
+    # beside it), against every input of score_ncc read once and the output
+    # written once at the memory rate
     slots, row_slot = row_slots(packed, layout, uniq, inv)
     row_hw = slots[row_slot].cpu().numpy()
     gvalid = cache.valid_hw.cpu().numpy()
     flops = needed_flop(row_hw, gvalid, c, tuple(cache.p0.shape[2:]))
+    tile = ncc_kernel.kernel_tile()
+    rows = ncc_kernel.row_plan(row_hw, (int(hk), int(wk)), tile.rows)
+    prints = ncc_kernel.print_plan(gvalid, tile.positions)
+    # a count from the host model of the blocks the plan launches
+    executed = ncc_kernel.executed_flop(rows, gvalid, c, (int(hk), int(wk)), tile)
     inputs = (cache.p0, cache.int1, cache.int2, cache.valid_hw, packed.kernels, uniq, inv)
     in_bytes = sum(t.numel() * t.element_size() for t in inputs)
     out_bytes = got.numel() * got.element_size()
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / PEAK_3XTF32_FLOPS * 1e3
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
     n, g = got.shape
     return {
         "phase": "kernel", "probes": pb, "rows": n, "prints": g, "channels": c,
         "kernel_hw": [int(hk), int(wk)],
-        "geometry": ncc_kernel.launch_geometry(cache.p0.shape[2], cache.p0.shape[3], int(hk), int(wk)),
-        "max_abs_err": err, "edge_case_max_abs_err": edge_err,
+        "geometry": ncc_kernel.launch_geometry(cache.p0.shape[3], int(hk), int(wk), rows, prints),
+        "tiles": len(rows.taps), "position_blocks_per_print": prints.n_chunks,
+        "max_abs_err": err, "edge_case_max_abs_err": edge_err, "err_vs_float64": err64,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "needed_flop": flops, "bytes": in_bytes + out_bytes,
+        "bound_fp32_ms": max(flops / PEAK_FP32_FLOPS * 1e3, t_bytes),
+        "needed_flop": flops, "executed_flop": executed, "bytes": in_bytes + out_bytes,
         "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12,
+        "bound_share": max(t_ops, t_bytes) / kernel_ms,
         "comparison_launches": ncc_kernel.launch_ncc.launches - launches0,
     }
 

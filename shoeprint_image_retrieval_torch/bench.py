@@ -151,7 +151,7 @@ def run_engine_mode(w: dict, qmaps: np.ndarray, device: torch.device) -> float:
 def run_kernel_mode(w: dict, qmaps: np.ndarray, device: torch.device) -> float:
     """Probes/s of the per-batch composition on a cache built once."""
     from .ops.ncc_direct import PackedVariants, VariantLayout, build_direct_cache
-    from .ops.ncc_kernel import score_ncc
+    from .ops import ncc_kernel
     from .retrieval.engine import (
         batch_windows, build_kernels, regroup_max, variant_classes, variant_plan)
 
@@ -170,22 +170,28 @@ def run_kernel_mode(w: dict, qmaps: np.ndarray, device: torch.device) -> float:
     layout = VariantLayout(counts, pb)
     tables = [torch.as_tensor(np.asarray(a), device=device) for a in
               (qmaps, q_sizes, plan.rot_idx, plan.rot_ok, plan.wv, plan.wh, plan.scale_hw)]
+    # the kernel's tile plan, made on the host as the engine makes it
+    tile = ncc_kernel.kernel_tile() if device.type == "cuda" else None
+    prints = None if tile is None else ncc_kernel.print_plan(w["g_sizes"] - 4, tile.positions)
     batches = []
     for lo in range(0, n_q, pb):
         take = np.minimum(np.arange(lo, lo + pb), n_q - 1)
         wins, uniq, inv = batch_windows(q_sizes[take], plan.scale_hw[take], plan.n_scl)
+        tiles = None if tile is None else (ncc_kernel.row_plan(
+            ncc_kernel.host_row_hw(wins, layout, uniq, inv), kernel_hw, tile.rows, device), prints)
         batches.append((torch.as_tensor(take, device=device),
-                        *(torch.as_tensor(a, device=device) for a in (wins, uniq, inv))))
+                        *(torch.as_tensor(a, device=device) for a in (wins, uniq, inv)), tiles))
     log(f"PB={pb} variants={sum(counts)} N={layout.n_variants} batches={len(batches)}")
 
     def run_all() -> list[np.ndarray]:
         rows = []
         with torch.inference_mode():
-            for take, wins, uniq, inv in batches:
+            for take, wins, uniq, inv, tiles in batches:
                 kernels = build_kernels(*(t.index_select(0, take) for t in tables),
                                         kernel_hw=kernel_hw, include_rots_unscaled=include,
                                         n_scl=plan.n_scl)
-                scores = score_ncc(cache, PackedVariants(kernels, wins), layout, c, uniq, inv)
+                scores = ncc_kernel.score_ncc(cache, PackedVariants(kernels, wins), layout, c,
+                                              uniq, inv, plan=tiles)
                 rows.append(regroup_max(scores, layout))
         return [r.cpu().numpy() for r in rows]
 

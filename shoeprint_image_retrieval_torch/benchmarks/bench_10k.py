@@ -130,6 +130,15 @@ def run(g: int = 10240, block: int = 0, pb: int = 128, sweep: bool = False,
     def on_dev(a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=dev)
 
+    # the kernel's tile plan, made on the host: its rows' half with each
+    # variant stack, its prints' half with each block
+    tile = ncc_kernel.kernel_tile() if dev.type == "cuda" else None
+
+    def stack(kernels, wins, uniq, inv):
+        rows = None if tile is None else ncc_kernel.row_plan(
+            ncc_kernel.host_row_hw(wins, layout, uniq, inv), kernel_hw, tile.rows, dev)
+        return PackedVariants(kernels, on_dev(wins)), on_dev(uniq), on_dev(inv), rows
+
     # variant stacks, built once and reused across every block
     batches, batch_rows = [], []
     with torch.inference_mode():
@@ -138,8 +147,7 @@ def run(g: int = 10240, block: int = 0, pb: int = 128, sweep: bool = False,
             windows = (q_sizes - 4).astype(np.int32)
             uniq, inv = np.unique(windows, axis=0, return_inverse=True)
             kernels = fold_template(on_dev(qmaps), on_dev(q_sizes), kernel_hw)
-            batches.append((PackedVariants(kernels, on_dev(windows)), on_dev(uniq),
-                            on_dev(inv.reshape(-1))))
+            batches.append(stack(kernels, windows, uniq, inv.reshape(-1)))
             batch_rows.append(0)
         else:
             plan = variant_plan(q_sizes, (hc, hc), rotations, scales)
@@ -153,23 +161,23 @@ def run(g: int = 10240, block: int = 0, pb: int = 128, sweep: bool = False,
                                         kernel_hw=kernel_hw, include_rots_unscaled=include,
                                         n_scl=plan.n_scl)
                 wins, uniq, inv = batch_windows(q_sizes[take], plan.scale_hw[take], plan.n_scl)
-                batches.append((PackedVariants(kernels, on_dev(wins)), on_dev(uniq),
-                                on_dev(inv)))
+                batches.append(stack(kernels, wins, uniq, inv))
                 batch_rows.append(lo)
             log(f"{len(batches)} variant stacks built "
                 f"({sum(b[0].kernels.numel() * 4 for b in batches) / 1e9:.2f} GB), "
                 f"reused across all blocks")
 
-        def score_block(cache, k):
-            packed, uniq, inv = batches[k]
-            s = ncc_kernel.score_ncc(cache, packed, layout, C, uniq, inv)
+        def score_block(cache, k, sizes):
+            packed, uniq, inv, rows = batches[k]
+            tiles = None if tile is None else (rows, ncc_kernel.print_plan(sizes - 4, tile.positions))
+            s = ncc_kernel.score_ncc(cache, packed, layout, C, uniq, inv, plan=tiles)
             return regroup_max(s, layout) if sweep else s
 
         # warm-up: the kernel library and the CUDA context, on a few prints
         t0 = time.perf_counter()
         nw = min(8, len(bs0))
         score_block(build_direct_cache(generate_block(0, bs0, C, g_hi, dev)[:nw],
-                                       on_dev(bs0[:nw])), 0).cpu()
+                                       on_dev(bs0[:nw])), 0, bs0[:nw]).cpu()
         log(f"warm-up: {time.perf_counter() - t0:.2f}s")
 
         buf = torch.zeros((len(batches) * QB, G), dtype=torch.float32, device=dev)
@@ -187,7 +195,7 @@ def run(g: int = 10240, block: int = 0, pb: int = 128, sweep: bool = False,
                 cache_gb = sum(t.numel() * t.element_size() for t in cache) / 1e9
             for k in range(len(batches)):
                 lo = batch_rows[k]
-                buf[lo : lo + QB, b_lo : b_lo + nb] = score_block(cache, k)
+                buf[lo : lo + QB, b_lo : b_lo + nb] = score_block(cache, k, sizes)
             del cache
         pairs = torch.arange(PB, device=dev)  # probe i's planted match is global print i
         ranks = ranks_on_device(buf[:PB], pairs).cpu().numpy()

@@ -236,7 +236,7 @@ def score_direct(
         kernels = F.pad(kernels, (0, 0, 0, 0, 0, c_pad - c))
     slots, row_slot = row_slots(packed, layout, slot_hw, slot_map)
     pad = (wk // 2, wk - 1 - wk // 2, hk // 2, hk - 1 - hk // 2)
-    acc = torch.zeros((n, g, hb, wb), dtype=torch.float32, device=cache.p0.device)
+    acc = torch.zeros((n, g, hb, wb), dtype=cache.p0.dtype, device=cache.p0.device)
     for ci in range(c_pad):
         p_pad = F.pad(cache.p0[ci][:, None], pad)  # (G, 1, Hb+hk-1, Wb+wk-1)
         corr = F.conv2d(p_pad, kernels[:, ci][:, None])  # (G, N, Hb, Wb)

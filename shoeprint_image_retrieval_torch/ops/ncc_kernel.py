@@ -2,10 +2,22 @@
 
 Replaces ``shoeprint_image_retrieval_tpu/ops/pallas/ncc_kernel.py::
 score_packed_operands`` (the Pallas TPU kernel). The TPU operand packing
-(lane packing, edge-extended integrals, band-matrix epilogue, per-class tap
-canvases) has no Hopper meaning and is not carried over; the kernel reads
-the cache in its natural channel-major layout and the variant stack
-transposed to (C_pad, N, hk, wk).
+(lane packing, edge-extended integrals, band-matrix epilogue) has no Hopper
+meaning and is not carried over; the kernel reads the cache in its natural
+channel-major layout and the variant stack in the engine's (N, C, hk, wk)
+layout.
+
+The kernel is a 3xTF32 tensor-core implicit GEMM over tiles of variant
+rows; its block tile lives in the CUDA source alone and is read from the
+built library (:func:`kernel_tile`). The tile plan is made on the host in
+two halves: :func:`row_plan` (once per variant batch) orders the rows by
+post-crop window and gives each tile the centred tap rectangle that holds
+every nonzero tap of its rows, as the JAX package's ``derive_class_taps``
+does per class; :func:`print_plan` (once per gallery block) bounds the
+prints' position blocks. The kernel scatters its results back to the
+engine's row order, so callers see the same (N, G) matrix.
+:func:`executed_flop` counts what the kernel then executes, by a host
+model of its blocks.
 
 :func:`score_ncc` takes the plain version (``ops/ncc_direct.score_direct``)
 only for tensors on the CPU. For CUDA tensors it launches the kernel or
@@ -16,9 +28,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
-import torch.nn.functional as F
 
 from . import build
 from .boxsum import EDGE_CROP
@@ -33,39 +46,182 @@ from .ncc_direct import (
 
 SOURCE = "shoeprint_image_retrieval_torch/csrc/ncc_score.cu"
 REPLACES = "shoeprint_image_retrieval_tpu/ops/pallas/ncc_kernel.py:963"
+ROUTE = "wgmma m64n64k8 3xTF32 (A from registers)"
+
+
+class Tile(NamedTuple):
+    """The kernel's block tile, as ``ncc_score_tile`` reports it."""
+
+    rows: int       # variant rows per tile
+    positions: int  # output positions of one print per block
+    taps: int       # taps per staged chunk
+    threads: int    # threads per block
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The kernel library, built at first use, with its C signatures bound."""
     lib = build.load("ncc_score")
-    ptr = ctypes.c_void_p
-    lib.ncc_score.argtypes = [ptr] * 8 + [ctypes.c_int] * 8 + [ptr]
-    lib.ncc_score.restype = ctypes.c_int
-    lib.ncc_score_geometry.argtypes = [ctypes.c_int] * 4 + [
-        ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
-    lib.ncc_score_geometry.restype = ctypes.c_int
-    lib.ncc_error_string.argtypes = [ctypes.c_int]
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
+    lib.ncc_score.argtypes = [ptr] * 8 + [cint] * 11 + [ptr]
+    lib.ncc_score.restype = cint
+    lib.ncc_score_geometry.argtypes = [cint] * 5 + [
+        ctypes.POINTER(cint), ctypes.POINTER(ctypes.c_longlong)]
+    lib.ncc_score_geometry.restype = cint
+    lib.ncc_score_tile.argtypes = [ctypes.POINTER(cint)] * 4
+    lib.ncc_score_tile.restype = None
+    lib.ncc_error_string.argtypes = [cint]
     lib.ncc_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def kernel_operands(
-    cache: DirectGalleryCache,
-    packed: PackedVariants,
-    layout: VariantLayout,
-    slot_hw: torch.Tensor | None = None,
-    slot_map: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's own layout: taps (C_pad, N, hk, wk) and each row's
-    post-crop window (N, 2) int32."""
-    c_pad = cache.p0.shape[0]
-    kernels = packed.kernels
-    if kernels.shape[1] != c_pad:
-        kernels = F.pad(kernels, (0, 0, 0, 0, 0, c_pad - kernels.shape[1]))
-    slots, row_slot = row_slots(packed, layout, slot_hw, slot_map)
-    row_hw = slots[row_slot].to(torch.int32).contiguous()
-    return kernels.transpose(0, 1).contiguous(), row_hw
+@functools.cache
+def kernel_tile() -> Tile:
+    """The block tile of the kernel as built (``csrc/ncc_score.cu`` is its
+    only source)."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    _library().ncc_score_tile(*[ctypes.byref(v) for v in vals])
+    return Tile(*(v.value for v in vals))
+
+
+class RowPlan(NamedTuple):
+    """The rows' half of the tile plan, made once per variant batch.
+
+    order: (N,) int64 — kernel row r holds engine row ``order[r]``; rows
+        sorted by post-crop window, largest first.
+    taps: (T, 4) int32 — each tile's tap rectangle on the (hk, wk) canvas,
+        ``(i0, h, j0, w)``: rows ``[i0, i0 + h)``, columns ``[j0, j0 + w)``.
+    slots: (N,) int32 — kernel row r's window is ``windows[r // m_tile,
+        slots[r]]``.
+    windows: (T, U, 2) int32 — each tile's distinct windows, tallest first,
+        padded with 1 x 1; U is the most any tile holds.
+    m_tile: rows per tile.
+    table: the plan as the kernel reads it, one int32 tensor on the
+        launch's device (:meth:`host_table`).
+    """
+
+    order: np.ndarray
+    taps: np.ndarray
+    slots: np.ndarray
+    windows: np.ndarray
+    m_tile: int
+    table: torch.Tensor
+
+    def host_table(self) -> np.ndarray:
+        """order, slots, (i0, h, j0, w, distinct windows) per tile and the
+        windows, as one int32 array."""
+        # a tile's slots rise along its rows: its last row's slot counts them
+        last = np.minimum(np.arange(1, len(self.taps) + 1) * self.m_tile, len(self.order)) - 1
+        counts = self.slots[last] + 1
+        return np.concatenate([
+            self.order.astype(np.int32), self.slots.astype(np.int32),
+            np.concatenate([self.taps, counts[:, None]], axis=1).reshape(-1),
+            self.windows.reshape(-1),
+        ]).astype(np.int32)
+
+
+class PrintPlan(NamedTuple):
+    """The prints' half of the tile plan, made once per gallery block.
+
+    n_chunks: blocks of the tile's positions per print (the most any print
+        needs).
+    span: print rows one block's positions cover, at most.
+    """
+
+    n_chunks: int
+    span: int
+
+
+def row_plan(row_hw: np.ndarray, kernel_hw: tuple[int, int], m_tile: int,
+             device: torch.device | str = "cpu") -> RowPlan:
+    """Order rows by window and give each tile of ``m_tile`` rows its tap
+    rectangle.
+
+    ``row_hw`` (N, 2): each row's post-crop window (``row_slots``). A folded
+    template is zero outside its window centred on the canvas
+    (``fold_template``), so a tile's nonzero taps lie in the centred
+    ``(max h, max w)`` sub-rectangle, clipped to ``[1, hk] x [1, wk]``.
+    """
+    row_hw = np.asarray(row_hw, np.int64).reshape(-1, 2)
+    hk, wk = (int(v) for v in kernel_hw)
+    order = np.argsort(-(row_hw[:, 0] * (row_hw[:, 1].max(initial=0) + 1) + row_hw[:, 1]),
+                       kind="stable")
+    n = len(order)
+    n_tiles = -(-n // m_tile)
+    hw = np.ones((n_tiles * m_tile, 2), np.int64)
+    hw[:n] = row_hw[order]
+    hw = hw.reshape(n_tiles, m_tile, 2).max(axis=1)
+    h = np.clip(hw[:, 0], 1, hk)
+    w = np.clip(hw[:, 1], 1, wk)
+    taps = np.stack([hk // 2 - h // 2, h, wk // 2 - w // 2, w], axis=1).astype(np.int32)
+
+    # each tile's distinct windows: sorted rows hold equal windows together
+    sorted_hw = row_hw[order]
+    tile_of = np.arange(n) // m_tile
+    new = np.ones(n, bool)
+    new[1:] = (tile_of[1:] != tile_of[:-1]) | (sorted_hw[1:] != sorted_hw[:-1]).any(axis=1)
+    rank = np.cumsum(new) - 1
+    slots = (rank - rank[tile_of * m_tile]).astype(np.int32)
+    windows = np.ones((n_tiles, int(slots.max(initial=0)) + 1, 2), np.int32)
+    windows[tile_of[new], slots[new]] = sorted_hw[new]
+    plan = RowPlan(order, taps, slots, windows, m_tile, torch.empty(0))
+    table = torch.from_numpy(plan.host_table()).to(device, non_blocking=True)
+    return plan._replace(table=table)
+
+
+def print_plan(gvalid: np.ndarray, n_tile: int) -> PrintPlan:
+    """Bound the position blocks of prints of post-crop valid sizes
+    ``gvalid`` (G, 2), :data:`n_tile` positions a block."""
+    first, last, live = _position_chunks(gvalid, n_tile)
+    span = int(np.where(live, last[..., 0] - first[..., 0] + 1, 0).max(initial=0))
+    return PrintPlan(max(1, first.shape[1]), span)
+
+
+def patch_rows(prints: PrintPlan, hk: int) -> int:
+    """Print rows one block holds at most: its positions' rows plus the
+    taps' rows."""
+    return max(1, prints.span + hk - 1)
+
+
+def _position_chunks(gvalid: np.ndarray, n_tile: int):
+    """(first (G, Q, 2), last (G, Q, 2), live (G, Q)): the (y, x) of the
+    first and last position of each print's chunks of ``n_tile`` valid
+    positions (row-major over the valid region) and which chunks exist."""
+    gv = np.asarray(gvalid, np.int64).reshape(-1, 2)
+    npos = gv[:, 0] * gv[:, 1]
+    q = np.arange(int(-(-npos.max(initial=0) // n_tile)))[None, :]
+    live = q * n_tile < npos[:, None]
+    vw = np.maximum(gv[:, 1:2], 1)
+    p_first = q * n_tile
+    p_last = np.minimum(p_first + n_tile, npos[:, None]) - 1
+    first = np.stack([p_first // vw, p_first % vw], axis=-1)
+    last = np.stack([p_last // vw, p_last % vw], axis=-1)
+    return first, last, live
+
+
+def executed_flop(rows: RowPlan, gvalid: np.ndarray, channels: int,
+                  kernel_hw: tuple[int, int], tile: Tile) -> float:
+    """FLOP the kernel executes for this plan, by a host model of its
+    blocks: for every (tile, print, position chunk) block, 2 x rows x
+    positions x its taps rounded up to whole chunks, per channel. The
+    block's taps are the tile's rectangle clipped to the tap rows and
+    columns that reach the print's valid region from one of its positions,
+    as the kernel clips them. A 3xTF32 product counts once (its three
+    tensor-core products are one f32 product)."""
+    hk, wk = (int(v) for v in kernel_hw)
+    gv = np.asarray(gvalid, np.int64).reshape(-1, 2)
+    first, last, live = _position_chunks(gv, tile.positions)
+    i0, h, j0, w = (rows.taps[:, k].astype(np.int64)[:, None, None] for k in range(4))
+    vh, vw = gv[None, :, 0, None], gv[None, :, 1, None]
+    y_first, y_last = first[None, ..., 0], last[None, ..., 0]
+    i_lo = np.maximum(i0, hk // 2 - y_last)
+    i_hi = np.minimum(i0 + h - 1, vh - 1 + hk // 2 - y_first)
+    j_lo = np.maximum(j0, wk // 2 - (vw - 1))
+    j_hi = np.minimum(j0 + w - 1, vw - 1 + wk // 2)
+    k = np.maximum(i_hi - i_lo + 1, 0) * np.maximum(j_hi - j_lo + 1, 0)
+    k_pad = -(-k // tile.taps) * tile.taps
+    return (2.0 * tile.rows * tile.positions * channels
+            * float(np.where(live[None], k_pad, 0).sum()))
 
 
 def launch_ncc(
@@ -73,25 +229,29 @@ def launch_ncc(
     int1: torch.Tensor,
     int2: torch.Tensor,
     kern: torch.Tensor,
-    row_hw: torch.Tensor,
     gvalid: torch.Tensor,
+    rows: RowPlan,
+    prints: PrintPlan,
     true_channels: int,
 ) -> torch.Tensor:
     """Run the kernel on operands already in its layout -> (N, G) f32.
 
-    p0 (C, G, Hb, Wb), int1/int2 (C, G, Hb+1, Wb+1), kern (C, N, hk, wk):
-    float32; row_hw (N, 2), gvalid (G, 2): int32; all contiguous on one CUDA
-    device. Launches on the current stream without synchronising.
+    p0 (C_pad, G, Hb, Wb), int1/int2 (C_pad, G, Hb+1, Wb+1), kern
+    (N, C, hk, wk) with C <= C_pad: float32; gvalid (G, 2) int32; all
+    contiguous on one CUDA device. ``rows`` is :func:`row_plan` of the
+    rows' windows with the kernel's tile, its table on that device;
+    ``prints`` is :func:`print_plan` of these ``gvalid``. Launches on the
+    current stream without synchronising.
     """
-    c, g, hb, wb = p0.shape
-    n, hk, wk = kern.shape[1], kern.shape[2], kern.shape[3]
+    c_pad, g, hb, wb = p0.shape
+    n, c, hk, wk = kern.shape
     expect = {
-        "p0": (p0, torch.float32, (c, g, hb, wb)),
-        "int1": (int1, torch.float32, (c, g, hb + 1, wb + 1)),
-        "int2": (int2, torch.float32, (c, g, hb + 1, wb + 1)),
-        "kern": (kern, torch.float32, (c, n, hk, wk)),
-        "row_hw": (row_hw, torch.int32, (n, 2)),
+        "p0": (p0, torch.float32, (c_pad, g, hb, wb)),
+        "int1": (int1, torch.float32, (c_pad, g, hb + 1, wb + 1)),
+        "int2": (int2, torch.float32, (c_pad, g, hb + 1, wb + 1)),
+        "kern": (kern, torch.float32, (n, c, hk, wk)),
         "gvalid": (gvalid, torch.int32, (g, 2)),
+        "rows.table": (rows.table, torch.int32, tuple(rows.table.shape)),
     }
     dev = p0.device
     for name, (t, dtype, shape) in expect.items():
@@ -103,8 +263,13 @@ def launch_ncc(
             raise ValueError(f"score_ncc: {name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"score_ncc: {name} is not contiguous")
-    if not 0 < true_channels <= c:
-        raise ValueError(f"score_ncc: true_channels={true_channels} outside (0, {c}]")
+    if not 0 < c <= c_pad:
+        raise ValueError(f"score_ncc: the stack has {c} channels, the cache {c_pad}")
+    if not 0 < true_channels <= c_pad:
+        raise ValueError(f"score_ncc: true_channels={true_channels} outside (0, {c_pad}]")
+    if rows.m_tile != kernel_tile().rows or rows.order.shape != (n,):
+        raise ValueError(f"score_ncc: the row plan is for {len(rows.order)} rows in tiles of "
+                         f"{rows.m_tile}, not {n} in tiles of {kernel_tile().rows}")
     lib = _library()
     out = torch.empty((n, g), dtype=torch.float32, device=dev)
     best = torch.empty((n, g), dtype=torch.int32, device=dev)
@@ -112,8 +277,9 @@ def launch_ncc(
     with torch.cuda.device(dev):
         rc = lib.ncc_score(
             p0.data_ptr(), int1.data_ptr(), int2.data_ptr(), kern.data_ptr(),
-            row_hw.data_ptr(), gvalid.data_ptr(), best.data_ptr(), out.data_ptr(),
-            c, g, n, hb, wb, hk, wk, int(true_channels), stream,
+            gvalid.data_ptr(), rows.table.data_ptr(), best.data_ptr(), out.data_ptr(),
+            c, g, n, hb, wb, hk, wk, prints.n_chunks, patch_rows(prints, hk),
+            rows.windows.shape[1], int(true_channels), stream,
         )
     if rc != 0:
         raise RuntimeError(f"ncc_score kernel launch failed: {lib.ncc_error_string(rc).decode()} ({rc})")
@@ -124,18 +290,19 @@ def launch_ncc(
 launch_ncc.launches = 0  # kernel launches since the caller last reset it
 
 
-def launch_geometry(hb: int, wb: int, hk: int, wk: int) -> dict:
-    """The kernel's block shape and shared memory for these sizes (from the
-    library itself, so the report matches what runs)."""
-    lib = _library()
-    nt, ty, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    smem = ctypes.c_longlong()
-    rc = lib.ncc_score_geometry(hb, wb, hk, wk, ctypes.byref(nt), ctypes.byref(ty),
-                                ctypes.byref(threads), ctypes.byref(smem))
+def launch_geometry(wb: int, hk: int, wk: int, rows: RowPlan, prints: PrintPlan) -> dict:
+    """The kernel's block shape, stages and shared memory for these sizes
+    and this plan (from the library itself, so the report matches what
+    runs)."""
+    stages, smem = ctypes.c_int(), ctypes.c_longlong()
+    rc = _library().ncc_score_geometry(wb, hk, wk, patch_rows(prints, hk), rows.windows.shape[1],
+                                       ctypes.byref(stages), ctypes.byref(smem))
     if rc != 0:
-        raise RuntimeError(f"no launch geometry for Hb={hb} Wb={wb} hk={hk} wk={wk}")
-    return {"rows_per_block": nt.value, "y_per_block": ty.value,
-            "threads": threads.value, "smem_bytes": smem.value}
+        raise RuntimeError(f"no launch geometry for Wb={wb} hk={hk} wk={wk}")
+    tile = kernel_tile()
+    return {"route": ROUTE, "rows_per_block": tile.rows, "positions_per_block": tile.positions,
+            "taps_per_stage": tile.taps, "threads": tile.threads, "stages": stages.value,
+            "smem_bytes": smem.value}
 
 
 def gallery_block_bytes_per_print(channels: int, hraw: int, wraw: int, n_rows: int) -> int:
@@ -151,7 +318,8 @@ def gallery_block_bytes_per_print(channels: int, hraw: int, wraw: int, n_rows: i
 
 
 # device bytes left free beyond the model: allocator rounding, cuDNN and
-# cuBLAS workspaces, the CUDA context's own allocations
+# cuBLAS workspaces, the CUDA context's own allocations, and the kernel's
+# tile-plan table (a few KB a batch)
 AUTO_BLOCK_MARGIN_BYTES = 4 * 1024**3
 
 
@@ -161,10 +329,21 @@ def auto_gallery_block(g_total: int, bytes_per_print: int, free_bytes: int,
     """The largest gallery block (prints, at least 1, at most ``g_total``)
     whose bytes fit ``free_bytes`` (``device.free_bytes``) less a margin
     and what stays resident while it is scored: the ``kept_stacks`` variant
-    stacks of ``stack_bytes`` each that are kept across blocks, one stack's
-    kernel-layout copy and one batch's build temporaries."""
-    room = free_bytes - (kept_stacks + 2) * stack_bytes - margin_bytes
+    stacks of ``stack_bytes`` each that are kept across blocks and one
+    batch's build temporaries (a stack's bytes). The kernel reads the stack
+    in place."""
+    room = free_bytes - (kept_stacks + 1) * stack_bytes - margin_bytes
     return max(1, min(g_total, room // max(1, bytes_per_print)))
+
+
+def host_row_hw(window_hw: np.ndarray, layout: VariantLayout,
+                slot_hw: np.ndarray | None = None, slot_map: np.ndarray | None = None) -> np.ndarray:
+    """(N, 2) each row's post-crop window from host copies of the stack's
+    window data, as :func:`~.ncc_direct.row_slots` resolves it."""
+    groups = layout.row_groups()
+    if slot_hw is None:
+        return np.asarray(window_hw)[groups]
+    return np.asarray(slot_hw)[np.asarray(slot_map)[groups]]
 
 
 def score_ncc(
@@ -174,16 +353,25 @@ def score_ncc(
     true_channels: int,
     slot_hw: torch.Tensor | None = None,
     slot_map: torch.Tensor | None = None,
+    plan: tuple[RowPlan, PrintPlan] | None = None,
 ) -> torch.Tensor:
     """Fused NCC scores (N, G) f32, the same quantity as ``score_direct``.
 
     CPU tensors go through the plain version; CUDA tensors through the
-    kernel.
+    kernel. ``plan`` is the tile plan the caller made on the host
+    (:func:`row_plan` of the rows' windows, :func:`print_plan` of the
+    cache's valid sizes); without it the plan is made here from copies of
+    the windows and valid sizes brought to the host, which waits for the
+    device.
     """
     if cache.p0.device.type == "cpu":
         return score_direct(cache, packed, layout, true_channels, slot_hw, slot_map)
-    kern, row_hw = kernel_operands(cache, packed, layout, slot_hw, slot_map)
-    return launch_ncc(
-        cache.p0, cache.int1, cache.int2, kern, row_hw,
-        cache.valid_hw.to(torch.int32).contiguous(), true_channels,
-    )
+    gvalid = cache.valid_hw.to(torch.int32).contiguous()
+    if plan is None:
+        slots, row_slot = row_slots(packed, layout, slot_hw, slot_map)
+        tile = kernel_tile()
+        plan = (row_plan(slots[row_slot].cpu().numpy(), packed.kernels.shape[-2:], tile.rows,
+                         cache.p0.device),
+                print_plan(gvalid.cpu().numpy(), tile.positions))
+    return launch_ncc(cache.p0, cache.int1, cache.int2, packed.kernels.contiguous(), gvalid,
+                      *plan, true_channels)

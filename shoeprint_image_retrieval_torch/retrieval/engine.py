@@ -47,7 +47,15 @@ from ..ops.ncc_direct import (
     fold_template,
     score_direct,
 )
-from ..ops.ncc_kernel import auto_gallery_block, gallery_block_bytes_per_print, score_ncc
+from ..ops.ncc_kernel import (
+    auto_gallery_block,
+    gallery_block_bytes_per_print,
+    host_row_hw,
+    kernel_tile,
+    print_plan,
+    row_plan,
+    score_ncc,
+)
 from ..ops.preprocess import normalize_batch
 from ..ops.topk import ranks_on_device
 from ..ops.warp import pil_resize_size, resample_weights, rotate_index_map
@@ -399,6 +407,9 @@ class Pipeline:
         layout = VariantLayout(class_counts, pb)
         # score_ncc takes the plain version itself for CPU tensors
         scorer = score_direct if self.config["tpu"]["ncc_backend"] == "direct" else score_ncc
+        # the kernel's tile plan is made on the host: its rows' half once per
+        # probe batch, its prints' half once per gallery block
+        tile = kernel_tile() if scorer is score_ncc and dev.type == "cuda" else None
         rank_dev = bool(self.config["tpu"]["rank_on_device"])
         q_valid = np.asarray(q_valid)
         g_valid = np.asarray(g_valid)
@@ -431,7 +442,9 @@ class Pipeline:
                 n_scl=plan.n_scl,
             )
             wins, uniq, inv = batch_windows(q_valid[take], plan.scale_hw[take], plan.n_scl)
-            return PackedVariants(kernels, on_dev(wins)), on_dev(uniq), on_dev(inv)
+            rows = None if tile is None else row_plan(
+                host_row_hw(wins, layout, uniq, inv), kernel_hw, tile.rows, dev)
+            return PackedVariants(kernels, on_dev(wins)), on_dev(uniq), on_dev(inv), rows
 
         with torch.inference_mode():
             if rank_dev:
@@ -449,10 +462,16 @@ class Pipeline:
                         g_maps.index_select(0, order_g[b_lo:b_hi]).to(dev, torch.float32),
                         on_dev(g_valid[order[b_lo:b_hi]]),
                     )
+                prints = None if tile is None else print_plan(
+                    g_valid[order[b_lo:b_hi]] - 2 * EDGE_CROP, tile.positions)
                 with self._stage("score"):
                     for lo in starts:
-                        packed, uniq, inv = stacks[lo] if prebuild else variant_batch(lo)
-                        scores = scorer(cache, packed, layout, true_c, uniq, inv)
+                        packed, uniq, inv, rows = stacks[lo] if prebuild else variant_batch(lo)
+                        if tile is None:
+                            scores = scorer(cache, packed, layout, true_c, uniq, inv)
+                        else:
+                            scores = score_ncc(cache, packed, layout, true_c, uniq, inv,
+                                               plan=(rows, prints))
                         n_take = min(pb, n_q - lo)
                         rows = regroup_max(scores, layout)[:n_take]
                         if rank_dev:

@@ -68,6 +68,10 @@ def _case(seed, c, n_prints, counts, pb, canvas, kernel_hw):
         (1, 16, 5, (1, 8, 8), 2, (46, 46), (34, 34)),  # main-path canvas
         (2, 8, 4, (2,), 9, (12, 10), (20, 18)),        # templates larger than prints
         (3, 8, 3, (1,), 5, (90, 70), (47, 39)),        # wide prints: other launch geometry
+        (4, 8, 6, (1, 8, 8, 8), 15, (46, 46), (34, 34)),  # N = 375: a partial last tile
+        (5, 8, 6, (1,), 128, (36, 36), (32, 32)),       # N = 128, one variant, 32 x 32 canvas
+        (6, 8, 5, (1, 3), 4, (51, 43), (47, 39)),       # the fixture's odd 47 x 39 canvas
+        (7, 4, 4, (1, 2), 3, (14, 12), (30, 26)),       # windows far larger than the prints
     ],
 )
 def test_kernel_matches_plain(seed, c, n_prints, counts, pb, canvas, kernel_hw):
@@ -81,19 +85,57 @@ def test_kernel_matches_plain(seed, c, n_prints, counts, pb, canvas, kernel_hw):
     assert got.shape == want.shape == (layout.n_variants, cache.p0.shape[1])
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= TOL
+    # the plan made on the host from host data, as the engine makes it
+    again = ncc_kernel.score_ncc(cache, packed, layout, c, plan=_host_plan(cache, packed, layout))
+    assert torch.equal(again, got)
+
+
+def _host_plan(cache, packed, layout):
+    tile = ncc_kernel.kernel_tile()
+    row_hw = ncc_kernel.host_row_hw(packed.window_hw.cpu().numpy(), layout)
+    return (ncc_kernel.row_plan(row_hw, packed.kernels.shape[-2:], tile.rows, "cuda"),
+            ncc_kernel.print_plan(cache.valid_hw.cpu().numpy(), tile.positions))
+
+
+def test_kernel_precision_against_float64():
+    """At the main path's canvas and depth of taps, the kernel (3xTF32, each
+    32-tap chunk summed in a fresh accumulator) stays under half the error
+    of the plain version with TF32 convolutions, both against float64."""
+    _need_card()
+    c = 32
+    cache, packed, layout = _case(8, c, 6, (1, 8, 8), 4, (46, 46), (34, 34))
+    got = ncc_kernel.score_ncc(cache, packed, layout, c)
+    exact = score_direct(type(cache)(*(t.double() for t in cache[:3]), cache.valid_hw),
+                         PackedVariants(packed.kernels.double(), packed.window_hw), layout, c)
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = score_direct(cache, packed, layout, c)
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    err = float((got.double() - exact).abs().max())
+    err_tf32 = float((tf32.double() - exact).abs().max())
+    assert err < 0.5 * err_tf32, (err, err_tf32)
 
 
 def test_kernel_rejects_bad_operands():
     _need_card()
     cache, packed, layout = _case(0, 5, 3, (1,), 2, (16, 16), (8, 8))
-    kern, row_hw = ncc_kernel.kernel_operands(cache, packed, layout)
-    args = [cache.p0, cache.int1, cache.int2, kern, row_hw, cache.valid_hw.contiguous(), 5]
+    kern = packed.kernels.contiguous()
+    gvalid = cache.valid_hw.to(torch.int32).contiguous()
+    rows, prints = _host_plan(cache, packed, layout)
+    args = [cache.p0, cache.int1, cache.int2, kern, gvalid, rows, prints, 5]
     with pytest.raises(TypeError):
         ncc_kernel.launch_ncc(*args[:3], kern.double(), *args[4:])
     with pytest.raises(ValueError):
         ncc_kernel.launch_ncc(*args[:3], kern.transpose(2, 3), *args[4:])
     with pytest.raises(ValueError):
         ncc_kernel.launch_ncc(cache.p0.cpu(), *args[1:])
+    other = ncc_kernel.row_plan(np.full((1, 2), 8), kern.shape[-2:], rows.m_tile, "cuda")
+    with pytest.raises(ValueError):
+        ncc_kernel.launch_ncc(*args[:5], other, prints, 5)
+    with pytest.raises(ValueError):  # the plan's table on the host
+        ncc_kernel.launch_ncc(*args[:5], rows._replace(table=rows.table.cpu()), prints, 5)
 
 
 def test_pipeline_kernel_ranks_equal_plain(tmp_path):

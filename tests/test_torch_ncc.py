@@ -23,7 +23,7 @@ from shoeprint_image_retrieval_tpu.ops import ncc_direct as jnd
 from shoeprint_image_retrieval_tpu.ops.pallas.ncc_kernel import score_direct_pallas
 from shoeprint_image_retrieval_torch.ops import ncc_direct as tnd
 from shoeprint_image_retrieval_torch.ops.boxsum import box_sum_same, integral_image
-from shoeprint_image_retrieval_torch.ops.ncc_kernel import kernel_operands, score_ncc
+from shoeprint_image_retrieval_torch.ops.ncc_kernel import host_row_hw, score_ncc
 from shoeprint_image_retrieval_torch.retrieval.engine import regroup_max
 
 SCORE_TOL = 1e-5  # float32 sums over C channels x hk*wk taps in another order
@@ -161,10 +161,13 @@ def test_window_dedup_gives_the_same_scores():
     dedup = tnd.score_direct(tc, packed, layout, 5, torch.from_numpy(uniq.astype(np.int32)),
                              torch.from_numpy(inv.reshape(-1))).numpy()
     np.testing.assert_array_equal(dedup, plain)
-    _, row_hw = kernel_operands(tc, packed, layout, torch.from_numpy(uniq.astype(np.int32)),
-                                torch.from_numpy(inv.reshape(-1)))
+    # each row's window, as the device path and the host tile plan resolve it
+    slots, row_slot = tnd.row_slots(packed, layout, torch.from_numpy(uniq.astype(np.int32)),
+                                    torch.from_numpy(inv.reshape(-1)))
     want_rows = windows[layout.row_groups()]
-    np.testing.assert_array_equal(row_hw.numpy(), want_rows)
+    np.testing.assert_array_equal(slots[row_slot].numpy(), want_rows)
+    np.testing.assert_array_equal(host_row_hw(windows, layout, uniq, inv.reshape(-1)), want_rows)
+    np.testing.assert_array_equal(host_row_hw(windows, layout), want_rows)
 
 
 def test_plain_scorer_matches_pallas_interpret():
