@@ -9,7 +9,7 @@ Phases, each printing one JSON line:
 1. ``build``: compiles every kernel of the port (``csrc/*.cu``) from the
    sources in the checkout for ``sm_90a``, one ``nvcc`` per source, all
    started together, with the compiler's register/shared-memory report;
-   fails if the NCC kernel spills registers.
+   fails if the NCC kernel or the probe kernel spills registers.
 2. ``kernel``: the fused NCC scorer ``score_ncc`` (the wrapper the engine
    calls; a 3xTF32 ``wgmma`` implicit GEMM) against its plain PyTorch
    version on the card, at the main-path shapes (G = 300 prints of 38-46 px
@@ -38,9 +38,13 @@ Phases, each printing one JSON line:
    (n = 1400). Each leg is then held against its plain version
    ``probe_plain`` (max |kernel - plain| / max |plain| <= 1e-5 for f32 and
    bf16, <= 1e-4 for 3xTF32) and reports its time, TFLOP/s, the bound at the
-   route's published peak and ``library_ms`` (``y_iters`` calls of
+   route's published peak, ``library_ms`` (``y_iters`` calls of
    ``torch.matmul`` on the (grid, n, k) stack, never called by the port),
-   beside ``probe_matmul``'s 4096^3 rates.
+   the bytes its TMA loads stream from L2 (``l2_bytes``, a model of its
+   tiles) with the rate they imply, and its launch plan (persistent blocks,
+   the parts each tile's products are cut into, scratch bytes), beside
+   ``probe_matmul``'s 4096^3 rates and each leg's launch geometry (tile,
+   ring stages, consumer warpgroups, shared memory, blocks a cluster).
 5. ``bench``: the port's ``bench.py`` at full width (G = 300, C = 176,
    PB = 56) with Q = 56 probes: engine and kernel-level probes/s.
 6. ``gallery_blocks``: the same workload through ``Pipeline._score_cluster``
@@ -134,8 +138,9 @@ def phase_build() -> dict:
         out["sources"][name] = {"nvcc_s": seconds, "ptxas": lines,
                                 "spill_bytes": spill_bytes(lines)}
     out["wall_s"] = time.perf_counter() - t0
-    if out["sources"]["ncc_score"]["spill_bytes"]:
-        raise AssertionError(f"ncc_score spills registers: {out['sources']['ncc_score']}")
+    for name in ("ncc_score", "mma_probe"):
+        if out["sources"][name]["spill_bytes"]:
+            raise AssertionError(f"{name} spills registers: {out['sources'][name]}")
     return out
 
 
@@ -475,11 +480,16 @@ def phase_mxu_probe(device: str = "cuda") -> tuple[dict, int]:
         moved = a.numel() * a.element_size() + b.numel() * b.element_size() + got.numel() * 4
         t_ops = flop / PROBE_PEAK_FLOPS[prec] * 1e3
         t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+        # what the kernel's TMA loads stream from L2 (a model of its tiles),
+        # and the rate that implies at the measured time
+        l2 = mp.l2_bytes(n, k, lanes, y_iters, grid, prec)
         legs.append({**r, "max_abs_err": abs_err, "max_rel_err": rel_err, "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "flop": flop, "bytes": moved,
-                     "bound_share": max(t_ops, t_bytes) / r["ms"]})
+                     "bound_share": max(t_ops, t_bytes) / r["ms"],
+                     "l2_bytes": l2, "l2_tb_per_s": l2 / (r["ms"] * 1e-3) / 1e12,
+                     **mp.launch_plan(n, k, lanes, y_iters, grid, prec)})
         del got, want
     matmul = mxu_probe.probe_matmul(device=device)
     return {"phase": "mxu_probe", "launches": launches, "geometry": mp.tile_geometry(),

@@ -207,10 +207,13 @@ probe_batch = 3
 @pytest.mark.parametrize(
     "n,k,lanes,y_iters,grid",
     [
-        (24, 37, 16, 3, 2),       # ragged everywhere, one block
+        (24, 37, 16, 3, 2),       # ragged everywhere, one tile (bf16 a: a 74-byte stride)
         (70, 1156, 130, 2, 3),    # the probe's depth; ragged rows and lanes, two lane blocks
         (128, 64, 128, 1, 1),     # whole tiles
         (16, 8, 8, 0, 2),         # no products: zeros
+        (1400, 1156, 128, 2, 3),  # the NCC row count: a ragged last row tile
+        (256, 64, 128, 1, 300),   # 600 tiles: more than SMs, the persistent walk
+        (64, 1156, 128, 48, 2),   # the JAX probe's full depth: accumulator drift
     ],
 )
 def test_probe_kernel_matches_plain(precision, n, k, lanes, y_iters, grid):
@@ -242,6 +245,27 @@ def test_probe_kernel_rejects_bad_operands():
         mp.launch_mma(a, b.t().contiguous().t(), 1, 1, "f32")  # not contiguous
     with pytest.raises(ValueError):
         mp.launch_mma(a, b.cpu(), 1, 1, "f32")
+
+
+def test_probe_geometry_matches_the_model():
+    """The library's tile, chunk and cluster are the ones the wrapper packs
+    for and ``l2_bytes`` counts, and a call launches one cluster a unit, up
+    to what the card holds at once."""
+    _need_card()
+    geo = mp.tile_geometry()
+    assert set(geo) == set(mp.PRECISIONS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for precision, leg in geo.items():
+        assert leg["tile"] == [*mp.TILE, mp.k_chunk(precision)]
+        assert leg["cluster"] == mp.CLUSTER and leg["consumer_warpgroups"] == 2
+        assert leg["smem_bytes"] <= 232448
+        plan = mp.launch_plan(512, 1156, 128, 48, 100, precision)  # 200 tiles of 2 grid steps
+        assert plan["blocks"] % mp.CLUSTER == 0 and sms // 2 < plan["blocks"] <= sms
+        assert 48 % plan["parts"] == 0 and plan["parts"] > 1  # 200 tiles leave a short last round
+        plan = mp.launch_plan(70, 1156, 130, 1, 1, precision)  # one step, 2 lane tiles, 1 product
+        assert plan["blocks"] == 2 * mp.CLUSTER and plan["parts"] == 1
+        assert plan["scratch_bytes"] == (2 * 200 * mp.padded_depth(1156, precision) * 4
+                                         if precision == "f32_3xtf32" else 0)
 
 
 def test_blocked_engine_equals_unblocked(tmp_path):

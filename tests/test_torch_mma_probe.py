@@ -86,6 +86,64 @@ def test_wrapper_rejects_bad_operands():
         mp.launch_mma(a, b, 1, 1, "f32")              # the kernel takes CUDA tensors only
 
 
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("lanes", [16, 130])
+@pytest.mark.parametrize("k", [37, 1156])
+def test_packing_adds_exact_zeros(k, lanes, precision):
+    """The wrapper's packed operands at ragged shapes: K-major, zero past k,
+    TMA-legal strides, and the same probe sum bit for bit. The operands are
+    small integers, so every sum is exact in f32 and no summation order can
+    change a bit (with normal floats MKL's CPU matmul blocks K = 1156 and
+    K = 1216 differently, and the plain sums differ in the last bits)."""
+    rng = np.random.default_rng(k + lanes)
+    dtype = mp.PRECISIONS[precision][1]
+    a = torch.from_numpy(rng.integers(-8, 9, size=(70, k)).astype(np.float32)).to(dtype)
+    b = torch.from_numpy(rng.integers(-8, 9, size=(k, lanes)).astype(np.float32)).to(dtype)
+    a_p, bt_p = mp.pack_operands(a, b, precision)
+    kp = mp.padded_depth(k, precision)
+    assert kp % mp.k_chunk(precision) == 0 and kp - mp.k_chunk(precision) < k <= kp
+    assert a_p.shape == (70, kp) and bt_p.shape == (lanes, kp)
+    assert a_p.dtype == bt_p.dtype == dtype
+    for t in (a_p, bt_p):
+        assert t.stride(0) * t.element_size() % 16 == 0 and t.data_ptr() % 16 == 0
+        assert not t[:, k:].any()
+    assert torch.equal(a_p[:, :k], a) and torch.equal(bt_p[:, :k], b.t())
+    mp.check_packed(a_p, bt_p)
+    assert torch.equal(mp.probe_plain(a_p, bt_p.t(), 2, 3), mp.probe_plain(a, b, 2, 3))
+
+
+def test_l2_bytes_against_a_hand_count():
+    # n = 200, lanes = 130: row tiles of 128 and 72 rows, lane tiles of 128
+    # and 2 lanes; over the 4 tiles the A rows plus B lanes are
+    # (128 + 128) + (128 + 2) + (72 + 128) + (72 + 2) = 660. A cluster loads
+    # them once for a pair of grid steps: grid 3 -> 2 pairs, grid 2 -> 1.
+    # bf16, k = 70: 2 chunks of 64; 660 rows x 128 B x 2 chunks x 3 products x 2 pairs
+    assert mp.l2_bytes(200, 70, 130, 3, 3, "bf16") == 660 * 128 * 2 * 3 * 2 == 1_013_760
+    assert mp.l2_bytes(200, 70, 130, 3, 2, "bf16") == 660 * 128 * 2 * 3 * 1
+    # 3xTF32: 3 chunks of 32 f32 (k = 70 -> 96), two planes
+    assert mp.l2_bytes(200, 70, 130, 3, 3, "f32_3xtf32") == 660 * 128 * 2 * 3 * 3 * 2
+    assert mp.l2_bytes(200, 70, 130, 3, 3, "f32") == 660 * 128 * 3 * 3 * 2
+    # the probe's default: 512 rows, 1156 deep (19 bf16 chunks), 48 products x 50 pairs
+    assert mp.l2_bytes(512, 1156, 128, 48, 100, "bf16") == (512 + 4 * 128) * 128 * 19 * 48 * 50
+    assert mp.l2_bytes(16, 8, 8, 0, 2, "bf16") == 0
+
+
+def test_wrapper_refuses_operands_tma_cannot_read():
+    a_p, _ = mp.pack_operands(torch.zeros(70, 37), torch.zeros(37, 16), "f32")
+    mp.check_packed(a_p)
+    flat = torch.zeros(70 * 64 + 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mp.check_packed(flat[1:].view(70, 64))        # base 4 bytes past an aligned one
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mp.check_packed(torch.zeros(70, 37))          # 148-byte rows: the raw f32 a at k = 37
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mp.check_packed(torch.zeros(1156, 130))       # 520-byte rows: the raw f32 b at lanes = 130
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mp.check_packed(torch.zeros(70, 1156, dtype=torch.bfloat16))  # 2312-byte rows
+    with pytest.raises(ValueError, match="contiguous rows"):
+        mp.check_packed(torch.zeros(64, 64).t()[:, :32])
+
+
 def test_probe_flop_counts_every_product():
     assert mp.probe_flop(512, 1156, 128, 48, 100) == 2 * 512 * 1156 * 128 * 48 * 100
     assert mp.SOURCE.endswith("csrc/mma_probe.cu")
