@@ -26,12 +26,36 @@ Phases, each printing one JSON line:
 3. ``main_path``: the synthetic Impress fixture
    (``scripts/make_synthetic_impress.generate``, 120 prints, 30 queries) on
    ``benchmarks/synthetic_impress.toml``'s settings through the port's
-   ``Pipeline`` — full-width EfficientNetV2_M from seeded init — four times,
-   in the order plain, kernel, kernel, plain (launch counts reset just before
-   the first kernel run and read just after it); ranks and S-lines must be
-   identical in all four. Reports each run's stage times and score time per
-   cluster.
-4. ``mxu_probe``: the measurement path ``benchmarks/mxu_probe.probe_kernel``
+   ``Pipeline`` — full-width EfficientNetV2_M from seeded init — with the
+   ``[tpu]`` defaults (native ingest tiers, streamed extraction with host
+   CLAHE, the cluster lookahead, the kernel's build prewarmed) four times, in
+   the order plain, kernel, kernel, plain (launch counts reset just before
+   the first kernel run and read just after it); then with the kernel three
+   more times: ``clahe_host = false`` (CLAHE on the card), ``profile_dir``
+   set (a ``torch.profiler`` trace per cluster) and ``pipeline_clusters =
+   false``. Ranks and S-lines must be identical in all seven, the kernel
+   runs' scores bit-identical to each other, one gallery block a cluster in
+   each, and the trace must hold device events. Reports each run's stage
+   seconds (its own thread's and the lookahead's), ingest tiers, CLAHE
+   route, peak device memory and score time per cluster, and from the
+   trace, per cluster: the device's busy and idle share, its 5 ops with the
+   most time and its 3 longest idle gaps with the host op that spans each
+   (:func:`trace_summary`).
+4. ``front_end``: on the fixture's ingested images, the device CLAHE on the
+   card against the native host CLAHE, gray (``clahe_batched_dynamic``)
+   and RGB (the engine's LAB route, on colour images made from the gray
+   ones), and on random sizes below the tile grid against its own CPU run;
+   all bit-exact; the times of both. Then the streamed extraction of the
+   gallery against the batched one: maps bit-identical, or else the max
+   |Δ| is reported and the ranks must be identical.
+5. ``extract``: ``benchmarks/bench_extract.run`` at full size (batch 32, a
+   704 x 704 canvas, block 6): images/s with CLAHE on the card and on the
+   host.
+6. ``parity``: ``retrieval/parity.run_parity`` on a fixture of 6 prints and
+   3 queries (the NumPy oracle's time bounds its size): the pipeline's
+   ranks against the oracle's (cv2's CLAHE, extraction at native shape,
+   the NumPy correlation), which must be identical.
+7. ``mxu_probe``: the measurement path ``benchmarks/mxu_probe.probe_kernel``
    (launch counts reset just before it and read just after) runs the probe
    kernel ``ops/mma_probe`` in f32, 3xTF32 and bf16 at the JAX default shape
    (512 x 1156 x 128, 48 products a step, 100 steps) and at the NCC row count
@@ -45,14 +69,14 @@ Phases, each printing one JSON line:
    the parts each tile's products are cut into, scratch bytes), beside
    ``probe_matmul``'s 4096^3 rates and each leg's launch geometry (tile,
    ring stages, consumer warpgroups, shared memory, blocks a cluster).
-5. ``bench``: the port's ``bench.py`` at full width (G = 300, C = 176,
+8. ``bench``: the port's ``bench.py`` at full width (G = 300, C = 176,
    PB = 56) with Q = 56 probes: engine and kernel-level probes/s.
-6. ``gallery_blocks``: the same workload through ``Pipeline._score_cluster``
+9. ``gallery_blocks``: the same workload through ``Pipeline._score_cluster``
    with ``gallery_block`` 0 and 128 (three blocks, the last of 44 prints),
    each with ``rank_on_device`` off and on. Scores must agree within 1e-6
    and ranks be identical. Reports the auto block ``mem_get_info`` gives at
    a 10,240-print gallery.
-7. ``bench_10k``: the port's ``benchmarks/bench_10k.py`` at G = 10,240,
+10. ``bench_10k``: the port's ``benchmarks/bench_10k.py`` at G = 10,240,
    C = 176, PB = 128, in blocks of 2048 prints (five), with its checks
    (device ranks = host ranks, an oracle subsample within 5e-4, every
    planted match at rank 1).
@@ -100,6 +124,10 @@ PROBES = 56  # probes per scoring call on the main path: 56 x 25 variants = 1400
 REPS = 2     # timed calls after one warm-up
 BLOCK = 128  # gallery_blocks: three blocks of the G = 300 bench gallery, the last of 44
 G_10K, BLOCK_10K = 10240, 2048  # bench_10k: five blocks
+# parity: the NumPy oracle correlates every variant of every query with
+# every print, channel by channel, on the host (12 prints x 4 queries took
+# 175 s on the H100's host); this fixture keeps it near a minute
+PARITY_GALLERY, PARITY_QUERIES = 6, 3
 
 ROTATIONS = [-15, -9, -3, 3, 9, 15, 180]
 SCALES = [1.02, 1.04, 1.08]
@@ -370,14 +398,21 @@ def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: in
     }
 
 
-def run_pipeline(config: dict, backend: str, device: str = "cuda"):
+def run_pipeline(config: dict, backend: str, device: str = "cuda", **tpu):
+    """One run of the fixture through ``Pipeline.run``, with ``[tpu]``
+    overrides; -> (outputs, S-lines, what the run took)."""
     import numpy as np
+    import torch
 
     from shoeprint_image_retrieval_torch.metrics import cmp, s_line
     from shoeprint_image_retrieval_torch.retrieval.engine import Pipeline
 
     cfg = copy.deepcopy(config)
     cfg["tpu"]["ncc_backend"] = backend
+    cfg["tpu"].update(tpu)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     pipe = Pipeline(cfg, weights_dir=None, verbose=False, device=device)
     outs, score_s = [], []
@@ -389,31 +424,121 @@ def run_pipeline(config: dict, backend: str, device: str = "cuda"):
     lines = []
     for out in outs:
         if out.scores.shape != (out.n_queries, n_g) or not np.isfinite(out.scores).all():
-            raise AssertionError(f"{backend}: bad scores {out.scores.shape}")
+            raise AssertionError(f"{backend} {tpu}: bad scores {out.scores.shape}")
         if out.ranks.min() < 1 or out.ranks.max() > n_g:
-            raise AssertionError(f"{backend}: ranks out of range")
+            raise AssertionError(f"{backend} {tpu}: ranks out of range")
         lines.append(s_line({p: cmp(out.ranks.tolist(), p, n_g, n_q) * 100
                              for p in (1, 5, 10, 15, 20)}))
-    return outs, lines, {"backend": backend, "wall_s": wall, "stages_s": pipe.stage_seconds,
-                         "score_s_per_cluster": score_s}
+    if pipe.gallery_blocks_scored != len(outs):
+        raise AssertionError(f"{backend} {tpu}: {pipe.gallery_blocks_scored} gallery blocks "
+                             f"for {len(outs)} clusters")
+    return outs, lines, {
+        "backend": backend, "tpu": tpu, "wall_s": wall, "stages_s": pipe.stage_seconds,
+        "lookahead_s": pipe.lookahead_seconds, "score_s_per_cluster": score_s,
+        "ingest_tiers": dict(pipe.ingest_tiers), "clahe": dict(pipe.clahe_routes),
+        "gallery_blocks": pipe.gallery_blocks_scored,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+    }
+
+
+def _merged(intervals):
+    """Sorted, merged (start, end) intervals."""
+    out = []
+    for lo, hi in sorted(intervals):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return out
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cpu_op", "user_annotation", "python_function", "cuda_runtime", "cuda_driver")
+
+
+def trace_summary(events: list[dict], top: int = 5, gaps: int = 3) -> dict:
+    """What one Chrome trace (``torch.profiler``'s ``traceEvents``) says of
+    the device over the trace's window (first to last timed event): its busy
+    and idle share (the union of kernel, copy and set intervals against the
+    window), the ``top`` device ops with the most total time, and the
+    ``gaps`` longest idle gaps, each with the innermost host op that spans
+    it (else the host op that overlaps it most). Times in ms."""
+    timed = [e for e in events if e.get("ph") == "X" and "dur" in e and "ts" in e]
+    if not timed:
+        raise ValueError("the trace holds no timed events")
+    span = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in timed]
+    w0, w1 = min(s for s, _ in span), max(e for _, e in span)
+    dev = [e for e in timed if e.get("cat") in DEVICE_CATS]
+    host = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e.get("name", ""))
+            for e in timed if e.get("cat") in HOST_CATS]
+    busy = _merged((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev)
+    busy_us = sum(hi - lo for lo, hi in busy)
+    edges = [w0] + [x for iv in busy for x in iv] + [w1]
+    idle = sorted(((edges[i + 1] - edges[i], edges[i], edges[i + 1])
+                   for i in range(0, len(edges), 2) if edges[i + 1] > edges[i]), reverse=True)
+
+    def spanning(lo: float, hi: float) -> str | None:
+        inside = [h for h in host if h[0] <= lo and h[1] >= hi]
+        if inside:
+            return min(inside, key=lambda h: h[1] - h[0])[2]
+        overlap = [(min(h[1], hi) - max(h[0], lo), h[2]) for h in host]
+        overlap = [o for o in overlap if o[0] > 0]
+        return max(overlap)[1] if overlap else None
+
+    per_op: dict[str, list] = {}
+    for e in dev:
+        acc = per_op.setdefault(e.get("name", "")[:120], [0.0, 0])
+        acc[0] += float(e["dur"])
+        acc[1] += 1
+    window = w1 - w0
+    return {
+        "window_ms": window / 1e3, "busy_ms": busy_us / 1e3,
+        "busy_share": busy_us / window if window else 0.0,
+        "idle_share": 1.0 - busy_us / window if window else 1.0,
+        "device_events": len(dev),
+        "top_ops": [{"name": n, "ms": t / 1e3, "calls": c, "share_of_busy": t / busy_us}
+                    for n, (t, c) in sorted(per_op.items(), key=lambda kv: -kv[1][0])[:top]],
+        "idle_gaps": [{"at_ms": (lo - w0) / 1e3, "ms": d / 1e3, "host_op": spanning(lo, hi)}
+                      for d, lo, hi in idle[:gaps]],
+    }
+
+
+def summarize_traces(trace_dir: Path) -> dict:
+    """:func:`trace_summary` of every ``cluster{i}.json`` under ``trace_dir``."""
+    out = {}
+    for path in sorted(trace_dir.glob("cluster*.json")):
+        doc = json.loads(path.read_text())
+        events = doc["traceEvents"] if isinstance(doc, dict) else doc
+        out[path.stem] = {"trace_bytes": path.stat().st_size, **trace_summary(events)}
+    return out
+
+
+def fixture_config(dataset: Path) -> dict:
+    """``benchmarks/synthetic_impress.toml`` pointed at ``dataset``, without
+    the on-disk gallery cache."""
+    from shoeprint_image_retrieval_torch.config import load_config
+
+    config = load_config(Path(__file__).resolve().parent / "benchmarks" / "synthetic_impress.toml")
+    config["dataset"]["dir"] = str(dataset)
+    config["tpu"]["cache_dir"] = ""
+    return config
 
 
 def phase_main_path(tmp: Path, device: str = "cuda", gallery: int = 120,
                     queries: int = 30) -> tuple[dict, int]:
     """Plain, kernel, kernel, plain, so that neither backend always pays the
-    first run's warm-up."""
+    first run's warm-up; then the kernel with CLAHE on the card, with a
+    trace, and without the cluster lookahead."""
     import numpy as np
 
     from scripts.make_synthetic_impress import generate
-    from shoeprint_image_retrieval_torch.config import load_config
     from shoeprint_image_retrieval_torch.ops import ncc_kernel
 
     t0 = time.perf_counter()
     generate(tmp / "Dataset", gallery=gallery, queries=queries)
     gen_s = time.perf_counter() - t0
-    config = load_config(Path(__file__).resolve().parent / "benchmarks" / "synthetic_impress.toml")
-    config["dataset"]["dir"] = str(tmp / "Dataset")
-    config["tpu"]["cache_dir"] = ""
+    config = fixture_config(tmp / "Dataset")
+    trace_dir = tmp / "traces"
 
     runs = [run_pipeline(config, "direct", device)]
     ncc_kernel.launch_ncc.launches = 0
@@ -421,18 +546,34 @@ def phase_main_path(tmp: Path, device: str = "cuda", gallery: int = 120,
     launches = ncc_kernel.launch_ncc.launches
     if launches < 1:
         raise AssertionError("the main path did not launch the NCC kernel")
-    runs += [run_pipeline(config, "auto", device), run_pipeline(config, "direct", device)]
+    runs += [run_pipeline(config, "auto", device), run_pipeline(config, "direct", device),
+             run_pipeline(config, "auto", device, clahe_host=False),
+             run_pipeline(config, "auto", device, profile_dir=str(trace_dir)),
+             run_pipeline(config, "auto", device, pipeline_clusters=False)]
     p_outs, p_lines, _ = runs[0]
-    max_err = 0.0
-    for outs, lines, info in runs[1:]:
+    k_outs = runs[1][0]
+    max_err, kernel_err = 0.0, {}
+    for i, (outs, lines, info) in enumerate(runs):
+        name = f"run {i} {info['backend']} {info['tpu']}"
+        want_route = "device" if info["tpu"].get("clahe_host") is False else "host"
+        if set(info["clahe"]) != {want_route}:
+            raise AssertionError(f"{name}: CLAHE routes {info['clahe']}, expected {want_route}")
         if len(outs) != len(p_outs):
-            raise AssertionError(f"{info['backend']}: planned different clusters")
-        for o, p in zip(outs, p_outs):
+            raise AssertionError(f"{name}: planned different clusters")
+        for o, p, k in zip(outs, p_outs, k_outs):
             if not np.array_equal(o.ranks, p.ranks):
-                raise AssertionError(f"ranks differ: {info['backend']} {o.ranks} plain {p.ranks}")
+                raise AssertionError(f"ranks differ: {name} {o.ranks} plain {p.ranks}")
             max_err = max(max_err, float(np.abs(o.scores - p.scores).max()))
+            if info["backend"] == "auto":
+                kernel_err[i] = max(kernel_err.get(i, 0.0), float(np.abs(o.scores - k.scores).max()))
         if lines != p_lines:
-            raise AssertionError(f"S-lines differ: {info['backend']} {lines} vs plain {p_lines}")
+            raise AssertionError(f"S-lines differ: {name} {lines} vs plain {p_lines}")
+    if any(kernel_err.values()):
+        raise AssertionError(f"kernel runs differ from the first kernel run: {kernel_err}")
+    traces = summarize_traces(trace_dir)
+    if len(traces) != len(p_outs) or (device == "cuda" and not all(
+            t["device_events"] for t in traces.values())):
+        raise AssertionError(f"the profiled run's traces hold no device events: {traces}")
     return {
         "phase": "main_path", "dataset_gen_s": gen_s,
         "clusters": [{"queries": o.n_queries, "block": o.block, "scale": o.scale,
@@ -440,7 +581,143 @@ def phase_main_path(tmp: Path, device: str = "cuda", gallery: int = 120,
         "s_lines": p_lines, "kernel_launches": launches,
         "runs": [info for _, _, info in runs],
         "scores_max_abs_diff": max_err,
+        "kernel_runs_max_abs_diff_vs_run_1": kernel_err,
+        "traces": traces,
     }, launches
+
+
+def phase_front_end(dataset: Path, device: str = "cuda", reps: int = REPS) -> dict:
+    """The device CLAHE against the native host CLAHE on the fixture's
+    ingested images, and the streamed extraction against the batched one."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from shoeprint_image_retrieval_torch.data import native_ingest
+    from shoeprint_image_retrieval_torch.data.loader import load_images, pack_canvas
+    from shoeprint_image_retrieval_torch.metrics import ranks_from_scores
+    from shoeprint_image_retrieval_torch.ops import clahe
+    from shoeprint_image_retrieval_torch.retrieval.engine import Pipeline
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    pipe = Pipeline(fixture_config(dataset), weights_dir=None, verbose=False, device=device)
+    ds, plan = pipe.dataset, pipe.plans[-1]
+    crop, n_threads = pipe.config["dataset"]["crop"], pipe.config["dataset"]["n_processes"]
+    clip = pipe.config["model"]["clahe_clip_limit"]
+    grid = tuple(pipe.config["model"]["clahe_tile_grid_size"])
+    tiers = Counter()
+    g_imgs = load_images(ds.gallery_dir, ds.gallery_files, plan.scale, crop, n_threads, tiers)
+    q_imgs = load_images(ds.query_dir, sorted(plan.files), plan.scale, crop, n_threads, tiers)
+    out = {"phase": "front_end", "images": len(g_imgs) + len(q_imgs), "ingest_tiers": dict(tiers),
+           "scale": plan.scale, "block": plan.block}
+
+    def held(name: str, images, device_fn):
+        """Device CLAHE of the packed images against the native one per
+        image; the times of both."""
+        batch, valid = pack_canvas(images)
+        u8, v = torch.from_numpy(batch).to(dev), torch.from_numpy(valid).to(dev)
+        got = device_fn(u8, v)
+        if got.device.type != dev.type:
+            raise AssertionError(f"{name}: device CLAHE ran on {got.device}")
+        got = got.cpu().numpy()
+        want = native_ingest.clahe_batch(images, clip, grid, n_threads)
+        bad = sum(not np.array_equal(got[i, : w.shape[0], : w.shape[1]], w)
+                  for i, w in enumerate(want))
+        if bad:
+            raise AssertionError(f"{name}: device CLAHE differs from the native one on {bad} images")
+        native_ingest.clahe_batch(images, clip, grid, n_threads)
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            native_ingest.clahe_batch(images, clip, grid, n_threads)
+        out[name] = {"images": len(images), "canvas": list(batch.shape[1:3]), "bit_exact": True,
+                     "device_ms": cuda_ms(lambda: device_fn(u8, v), reps) if dev.type == "cuda"
+                     else None,
+                     "host_ms": (time.perf_counter() - t1) * 1e3 / reps}
+
+    imgs = g_imgs + q_imgs
+    held("gray", imgs, lambda u8, v: clahe.clahe_batched_dynamic(u8, v, clip, grid))
+    rgb = [np.stack([im, np.roll(im, 17, axis=1), 255 - im], axis=-1) for im in imgs[:32]]
+    held("rgb", rgb, pipe._device_clahe)
+
+    # sizes below the tile grid, where the native CLAHE refuses: the card
+    # against the same function on the CPU
+    rng = np.random.default_rng(7)
+    tiny_hw = rng.integers(1, 13, (64, 2)).astype(np.int32)
+    tiny_hw[np.arange(64), rng.integers(0, 2, 64)] = rng.integers(1, min(grid), 64)
+    tiny = np.zeros((64, 12, 12), np.uint8)
+    for i, (h, w) in enumerate(tiny_hw):
+        tiny[i, :h, :w] = rng.integers(0, 256, (h, w))
+    on_dev = clahe.clahe_batched_dynamic(torch.from_numpy(tiny).to(dev),
+                                         torch.from_numpy(tiny_hw).to(dev), clip, grid).cpu()
+    on_cpu = clahe.clahe_batched_dynamic(torch.from_numpy(tiny), torch.from_numpy(tiny_hw), clip, grid)
+    if not torch.equal(on_dev, on_cpu):
+        raise AssertionError("device CLAHE below the tile grid differs from its CPU run")
+    out["below_tile_grid"] = {"images": len(tiny), "bit_exact": True}
+
+    # the gallery, streamed and batched
+    model = pipe._model_for_block(plan.block)
+    t1 = time.perf_counter()
+    ms, vs = pipe._extract_streamed(model, ds.gallery_dir, ds.gallery_files, plan.scale, pipe._g_hdr)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    mb, vb = pipe._extract(model, pipe._host_clahe(g_imgs))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t1
+    if not np.array_equal(vs, vb):
+        raise AssertionError("streamed and batched extraction give other valid sizes")
+    identical = bool(torch.equal(ms, mb))
+    delta = 0.0 if identical else float((ms - mb).abs().max())
+    out["streamed_vs_batched"] = {"prints": len(vs), "maps_bit_identical": identical,
+                                  "max_abs_diff": delta, "streamed_s": stream_s,
+                                  "batched_s": batched_s}
+    if not identical:
+        q_maps, q_valid = pipe._extract(model, pipe._host_clahe(q_imgs))
+        pairs = ds.matching_pairs(sorted(plan.files))
+        ranks = [ranks_from_scores(pipe._score_cluster(q_maps, q_valid, m, v), pairs)
+                 for m, v in ((ms, vs), (mb, vb))]
+        if not np.array_equal(*ranks):
+            raise AssertionError("streamed and batched gallery maps rank differently")
+        out["streamed_vs_batched"]["ranks_identical"] = True
+    pipe.close()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_extract(device: str = "cuda") -> dict:
+    from shoeprint_image_retrieval_torch.benchmarks import bench_extract
+
+    t0 = time.perf_counter()
+    return {"phase": "extract", **bench_extract.run(device=device),
+            "wall_s": time.perf_counter() - t0}
+
+
+def phase_parity(tmp: Path, device: str = "cuda", gallery: int = PARITY_GALLERY,
+                 queries: int = PARITY_QUERIES) -> dict:
+    """``run_parity`` on a small fixture; its exit status must be 0."""
+    import contextlib
+    import io
+
+    from scripts.make_synthetic_impress import generate
+    from shoeprint_image_retrieval_torch.retrieval.parity import run_parity
+
+    t0 = time.perf_counter()
+    generate(tmp / "Parity", gallery=gallery, queries=queries)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = run_parity(fixture_config(tmp / "Parity"), weights_dir=None, device=device)
+    lines = [ln for ln in log.getvalue().splitlines()
+             if ln.startswith(("cluster", "PARITY", "S1", "Pipeline", "Oracle"))]
+    if rc != 0:
+        raise AssertionError("parity: the pipeline's ranks differ from the oracle's:\n"
+                             + "\n".join(lines))
+    return {"phase": "parity", "prints": gallery, "queries": queries,
+            "exit_status": rc, "report": lines,
+            "wall_s": time.perf_counter() - t0}
 
 
 def phase_mxu_probe(device: str = "cuda") -> tuple[dict, int]:
@@ -605,7 +882,10 @@ def main() -> int:
     emit(kern)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         main_path, launches = phase_main_path(Path(tmp))
-    emit(main_path)
+        emit(main_path)
+        emit(phase_front_end(Path(tmp) / "Dataset"))
+        emit(phase_extract())
+        emit(phase_parity(Path(tmp)))
     probe, probe_launches = phase_mxu_probe()
     emit(probe)
     emit(phase_bench())

@@ -8,18 +8,24 @@ Same parse as ``shoeprint_image_retrieval_tpu/config.py``: plain TOML, the
 :func:`check_supported` says which ``[tpu]`` keys this port honours:
 
 * honoured: ``variant_mode``, ``extraction_batch``, ``probe_batch``,
-  ``cache_dir``, ``clahe_host``, ``ncc_backend`` (``auto``/``pallas``
+  ``cache_dir``, ``clahe_host`` (true: the native host CLAHE where it can
+  take the images exactly, streamed with extraction; false: CLAHE on the
+  device in the extraction step), ``ncc_backend`` (``auto``/``pallas``
   = the CUDA kernel on a card, ``direct`` = its plain PyTorch version; on
   the CPU all three are the plain version), ``gallery_block`` (prints per
   gallery block; 0 = the largest block that fits the card's free memory,
-  one block on the CPU) and ``rank_on_device`` (scores stay on the device
-  and ranks are counted there; ties in height-sorted column order);
-* read and ignored, because they only shape TPU speed: ``prewarm``,
-  ``pipeline_clusters``, ``mesh_shape`` <= 1 and ``profile_dir``;
+  one block on the CPU), ``rank_on_device`` (scores stay on the device
+  and ranks are counted there; ties in height-sorted column order),
+  ``pipeline_clusters`` (the next cluster's ingest and extraction on a
+  lookahead thread while this one scores), ``prewarm`` (on a card, the NCC
+  kernel builds on a thread from the moment the pipeline is made; nothing
+  on the CPU) and ``profile_dir`` (one ``torch.profiler`` Chrome trace per
+  cluster there; empty = none);
+* read and ignored: ``mesh_shape`` <= 1;
 * refused with ``NotImplementedError`` naming the ROADMAP item that will
   port them: ``ncc_backend="fft"``, ``mesh_shape`` > 1, a non-empty
-  ``fusion_blocks``, ``pruned_scoring``, ``precision``/``cache_dtype`` =
-  ``"bfloat16"`` and ``clahe_host=false``.
+  ``fusion_blocks``, ``pruned_scoring`` and ``precision``/``cache_dtype`` =
+  ``"bfloat16"``.
 """
 
 from __future__ import annotations
@@ -96,5 +102,3 @@ def check_supported(config: dict) -> None:
             raise not_ported(f"tpu.{key} = 'bfloat16'", 10, "bf16 precision")
         if tpu[key] != "float32":
             raise LookupError(f"Unknown tpu.{key}: {tpu[key]!r}")
-    if not tpu["clahe_host"]:
-        raise not_ported("tpu.clahe_host = false", 2, "device CLAHE")

@@ -3,9 +3,19 @@
 The port of the single-device main path of ``shoeprint_image_retrieval_tpu/
 retrieval/engine.py`` (reference run.py:17-34 + similarity.py:129-375):
 
-* host ingest (``data/loader.py``) and native CLAHE (``data/native_ingest``);
+* host ingest through the loader's tiers (``data/loader.py``: native decode
+  + crop/resize, PIL decode + native crop/resize, or PIL) and native CLAHE
+  (``data/native_ingest``); where the native CLAHE cannot take a set exactly
+  (``tpu.clahe_host = false``, non-uint8 images, images smaller than the tile
+  grid) CLAHE runs on the device inside the extraction step (``ops/clahe``);
 * normalisation and masked batched extraction through the truncated
-  backbone (``ops/preprocess.py``, ``models/``);
+  backbone (``ops/preprocess.py``, ``models/``), streamed where the host
+  CLAHE applies: a worker thread ingests chunk i+1 while the device extracts
+  chunk i (:meth:`Pipeline._extract_streamed`);
+* with ``tpu.pipeline_clusters``, cluster k+1's ingest and extraction on a
+  lookahead thread while cluster k scores; with ``tpu.prewarm`` on a card,
+  the NCC kernel's build on a thread from the moment the pipeline is made;
+  with ``tpu.profile_dir``, one ``torch.profiler`` trace per cluster;
 * the gallery cache: demeaned prints + integral images of the
   height-sorted gallery, built per block of ``tpu.gallery_block`` prints
   (``ops/ncc_direct.build_direct_cache``; 0 = the largest block that fits
@@ -17,29 +27,37 @@ retrieval/engine.py`` (reference run.py:17-34 + similarity.py:129-375):
   ``tpu.rank_on_device`` the scores left on the device and ranked there
   (:class:`DeviceScores`, ``ops/topk.py``).
 
-Not carried over (ROADMAP.md, 'Still to port'): streamed ingest, device
-CLAHE, the TPU sizing helpers, prewarm, cluster lookahead, fusion, pruning,
-the mesh.
+Not carried over (ROADMAP.md, 'Still to port'): the TPU sizing helpers,
+fusion, pruning, the mesh.
 """
 
 from __future__ import annotations
 
+import math
+import os
+import threading
+import warnings
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Sequence
+from pathlib import Path
+from typing import Iterable, Sequence
 
 import numpy as np
 import torch
+from PIL import Image
 
-from ..config import check_supported, not_ported
+from ..config import check_supported
 from ..data import native_ingest
 from ..data.discovery import Dataset, parse_image_id
-from ..data.loader import load_images, pack_canvas
+from ..data.loader import canvas_bucket, load_images, pack_canvas
 from ..data.planner import PlannerConfig, plan_clusters, read_header_sizes
 from ..device import free_bytes, resolve_device
 from ..metrics import ranks_from_scores
 from ..models.registry import get_backbone
 from ..models.weights import build_model
 from ..ops.boxsum import EDGE_CROP
+from ..ops.clahe import clahe_batched_dynamic, lab_u8_to_rgb, rgb_to_lab_u8
 from ..ops.ncc_direct import (
     PackedVariants,
     VariantLayout,
@@ -59,7 +77,7 @@ from ..ops.ncc_kernel import (
 from ..ops.preprocess import normalize_batch
 from ..ops.topk import ranks_on_device
 from ..ops.warp import pil_resize_size, resample_weights, rotate_index_map
-from ..utils.tracing import stage_timer
+from ..utils.tracing import profile_trace, stage_timer
 from .gallery import GalleryFeatureCache
 
 # Probes per scoring call when tpu.probe_batch is 0: 56 probes x 25 variants
@@ -71,6 +89,32 @@ DEFAULT_PROBE_BATCH = 56
 # (the JAX engine's cap, engine.py:1292-1311); above it they are rebuilt
 # per block.
 PREBUILD_BYTES = 6e9
+# chunks the streamed extraction prepares ahead of the device (host memory
+# holds about this many chunks)
+STREAM_LOOKAHEAD = 2
+
+
+def _device_maps_budget() -> int:
+    """Bytes of extracted feature maps a set may keep on the card.
+
+    Under it a set's maps stay on the device from extraction into scoring;
+    above it (galleries too large for the card) each chunk's maps go to
+    pinned host memory and the scorer moves them back a gallery block at a
+    time. ``SIR_DEVICE_MAPS_MAX`` overrides the 2 GB default (the JAX
+    engine's ``_device_maps_budget``).
+    """
+    return int(os.environ.get("SIR_DEVICE_MAPS_MAX", str(int(2e9))))
+
+
+def _pad_chunk(batch: np.ndarray, valid: np.ndarray, bs: int) -> tuple[np.ndarray, np.ndarray]:
+    """Pad a short last chunk to ``bs`` images (zeros, valid 1 x 1), so every
+    chunk of a set runs at one batch shape and picks the same convolution
+    algorithms."""
+    pad = bs - len(batch)
+    if not pad:
+        return batch, valid
+    return (np.concatenate([batch, np.zeros((pad, *batch.shape[1:]), batch.dtype)]),
+            np.concatenate([valid, np.ones((pad, 2), valid.dtype)]))
 
 
 @dataclass
@@ -253,6 +297,22 @@ class Pipeline:
     ``device`` is ``"cuda"`` (default) or ``"cpu"``. On CUDA the NCC scorer is
     the hand-written kernel unless ``tpu.ncc_backend = "direct"`` asks for its
     plain PyTorch version; on the CPU it is always the plain version.
+
+    What each run took is counted on the object: ``stage_seconds`` and
+    ``lookahead_seconds`` (below), ``ingest_tiers`` (the loader tier that
+    served each file set), ``clahe_routes`` (``host`` or ``device``, once per
+    cluster whose features were extracted) and ``gallery_blocks_scored``.
+
+    Stage seconds are kept per thread. The calling thread's stages go into
+    ``stage_seconds``; each ends with a device-wide synchronise, so a stage
+    holds its own device time. With ``tpu.pipeline_clusters`` the next
+    cluster's ingest and extraction run on the lookahead thread while this
+    one scores; its stages, under the same names, go into
+    ``lookahead_seconds``, are timed on the host clock without a device
+    synchronise (each extraction chunk's pull of its valid sizes waits for
+    that chunk's work) and overlap the calling thread's ``score`` and
+    ``cache``. Both threads issue to the device's default stream, so their
+    device work is serialised in the order it was issued.
     """
 
     def __init__(self, config: dict, weights_dir: str | None = "weights",
@@ -269,7 +329,23 @@ class Pipeline:
         self.weights_dir = weights_dir
         self._models: dict[int, torch.nn.Module] = {}
         self.stage_seconds: dict[str, float] = {}
+        self.lookahead_seconds: dict[str, float] = {}
+        self.ingest_tiers: Counter = Counter()
+        self.clahe_routes: Counter = Counter()
         self.gallery_blocks_scored = 0  # gallery blocks scored, over all clusters
+        self._mode_cache: dict[str, str] = {}
+        self._la_pool: ThreadPoolExecutor | None = None
+        self._lookahead = None  # (plan, future of its features)
+        self._prewarm: threading.Thread | None = None
+        self._prewarm_error: BaseException | None = None
+        tpu = config["tpu"]
+        if tpu["prewarm"] and self.device.type == "cuda" and tpu["ncc_backend"] != "direct":
+            # the only thing the port compiles is its kernels, at first use
+            # (ops/build.py): build the NCC kernel while ingest and
+            # extraction run; the first scoring call joins this thread
+            self._prewarm = threading.Thread(target=self._prewarm_build, daemon=True,
+                                             name="shoeprint-prewarm")
+            self._prewarm.start()
         self._gcache_params = (
             tuple(config["dataset"]["crop"]),
             model_cfg["clahe_clip_limit"],
@@ -287,6 +363,10 @@ class Pipeline:
         )
         q_sizes = read_header_sizes(self.dataset.query_dir, self.dataset.query_files)
         g_sizes = read_header_sizes(self.dataset.gallery_dir, self.dataset.gallery_files)
+        # header (width, height) per file: the streamed path derives each
+        # set's canvas from these without decoding a pixel
+        self._q_hdr = dict(zip(self.dataset.query_files, q_sizes))
+        self._g_hdr = dict(zip(self.dataset.gallery_files, g_sizes))
         self.plans = plan_clusters(
             q_sizes, self.dataset.query_files, g_sizes, config["dataset"]["crop"],
             config["dataset"]["n_clusters"], planner_cfg,
@@ -298,6 +378,24 @@ class Pipeline:
     def _stage(self, name: str):
         return stage_timer(name, self.verbose, self.stage_seconds, self.device)
 
+    def _prewarm_build(self) -> None:
+        """Build the NCC kernel (``tpu.prewarm``); a failure is kept and
+        raised by the first scoring call (:meth:`_join_prewarm`)."""
+        try:
+            kernel_tile()
+        except Exception as exc:  # noqa: BLE001 — re-raised on the scoring thread
+            self._prewarm_error = exc
+
+    def _join_prewarm(self) -> None:
+        """Wait for the prewarm build and raise what it raised."""
+        if self._prewarm is None:
+            return
+        self._prewarm.join()
+        self._prewarm = None
+        err, self._prewarm_error = self._prewarm_error, None
+        if err is not None:
+            raise RuntimeError("the NCC kernel's build (tpu.prewarm) failed") from err
+
     def _model_for_block(self, block: int) -> torch.nn.Module:
         if block not in self._models:
             self._models[block] = build_model(
@@ -305,15 +403,20 @@ class Pipeline:
             )
         return self._models[block]
 
-    def _host_clahe(self, images: Sequence[np.ndarray]) -> list[np.ndarray]:
-        """Equalise on the host with the native C++ CLAHE (bit-exact vs cv2).
+    def _host_clahe(self, images: Sequence[np.ndarray]) -> list[np.ndarray] | None:
+        """Equalise on the host with the native C++ CLAHE (bit-exact vs cv2),
+        or ``None`` where it cannot take the set exactly and the device CLAHE
+        must: ``tpu.clahe_host = false``, non-uint8 images, images smaller
+        than the tile grid (there the native reflect-101 extension clamps
+        where cv2 reflects again; the device CLAHE clamps as well).
 
         Each image is equalised per its own mode (gray CLAHE for 2-D, LAB-L
         CLAHE for RGB); in a mixed set the gray results are expanded to
-        3-channel repeats so the set packs onto one canvas. Inputs the native
-        path cannot take exactly (non-uint8, images smaller than the tile
-        grid) need the device CLAHE, which the port does not have yet.
+        3-channel repeats so the set packs onto one canvas (the reference's
+        gray transform repeats channels after CLAHE, network.py:55-71).
         """
+        if not self.config["tpu"]["clahe_host"]:
+            return None
         gray_i = [i for i, im in enumerate(images) if im.ndim == 2 and im.dtype == np.uint8]
         rgb_i = [i for i, im in enumerate(images)
                  if im.ndim == 3 and im.shape[2] == 3 and im.dtype == np.uint8]
@@ -322,7 +425,7 @@ class Pipeline:
         if len(gray_i) + len(rgb_i) != len(images) or not all(
             im.shape[0] >= ty and im.shape[1] >= tx for im in images
         ):
-            raise not_ported("CLAHE of non-uint8 or sub-tile-grid images", 2, "device CLAHE")
+            return None
         out: list = [None] * len(images)
         for idx in (gray_i, rgb_i):
             if idx:
@@ -338,21 +441,164 @@ class Pipeline:
                 out[i] = np.repeat(out[i][:, :, None], 3, axis=2)
         return out
 
+    def _device_clahe(self, u8: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """CLAHE of a padded batch on its device (``ops/clahe``): gray
+        directly, RGB on the L channel of cv2's LAB (the JAX engine's
+        extraction step with ``device_clahe``)."""
+        mcfg = self.config["model"]
+        clip, grid = mcfg["clahe_clip_limit"], tuple(mcfg["clahe_tile_grid_size"])
+        if u8.ndim == 3:
+            return clahe_batched_dynamic(u8, valid, clip, grid)
+        lab = rgb_to_lab_u8(u8)
+        l_eq = clahe_batched_dynamic(lab[..., 0].contiguous(), valid, clip, grid)
+        return lab_u8_to_rgb(torch.cat([l_eq[..., None], lab[..., 1:]], dim=-1))
+
+    def _to_host(self, y: torch.Tensor) -> torch.Tensor:
+        """A copy of ``y`` in pinned host memory."""
+        host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+        host.copy_(y)
+        return host
+
     @torch.inference_mode()
-    def _extract(self, model: torch.nn.Module, images: Sequence[np.ndarray]):
-        """Batched masked extraction -> (maps (B, C, Hf, Wf) on the device,
-        valid (B, 2) int32 numpy)."""
-        batch_u8, valid = pack_canvas(images)
-        bs = max(1, int(self.config["tpu"]["extraction_batch"]))
-        outs, vouts = [], []
-        for i in range(0, len(images), bs):
-            u8 = torch.from_numpy(batch_u8[i : i + bs]).to(self.device)
-            v = torch.from_numpy(valid[i : i + bs]).to(self.device)
+    def _run_extraction(self, model: torch.nn.Module, chunks: Iterable, n_images: int,
+                        device_clahe: bool):
+        """Extract ``chunks`` of ``(u8 batch, valid, images in it)`` (host
+        arrays or tensors, each padded to the set's batch) -> (maps (B, C, Hf,
+        Wf), valid (B, 2) int32 numpy).
+
+        The host pulls each chunk's valid sizes one chunk late, so the next
+        chunk is issued before it waits; the pull waits for that chunk's
+        work, which bounds how far the host runs ahead. The set's maps stay
+        on the device when all of them fit :func:`_device_maps_budget`,
+        else each chunk's go to pinned host memory.
+        """
+        dev = self.device
+        outs, vouts, pending = [], [], []
+        keep_device = None
+
+        def drain(limit: int) -> None:
+            while len(pending) > limit:
+                y, vy, n = pending.pop(0)
+                vouts.append(vy[:n].cpu().numpy().astype(np.int32))
+                outs.append(y[:n] if keep_device else self._to_host(y[:n]))
+
+        for batch, valid, n in chunks:
+            u8 = torch.as_tensor(batch).to(dev, non_blocking=True)
+            v = torch.as_tensor(valid).to(dev, non_blocking=True)
+            if device_clahe:
+                u8 = self._device_clahe(u8, v)
             x = normalize_batch(u8, v, self.spec.mean, self.spec.std)
             y, vy = model(x, v)
-            outs.append(y)
-            vouts.append(vy.cpu().numpy().astype(np.int32))
-        return torch.cat(outs), np.concatenate(vouts)
+            if keep_device is None:
+                per_img = y[0].numel() * y.element_size()
+                keep_device = dev.type != "cuda" or per_img * n_images <= _device_maps_budget()
+            pending.append((y, vy, n))
+            drain(1)
+        drain(0)
+        return (torch.cat(outs) if len(outs) > 1 else outs[0]), np.concatenate(vouts)
+
+    def _extract(self, model: torch.nn.Module, images: Sequence[np.ndarray],
+                 canvas_hw: tuple[int, int] | None = None, device_clahe: bool = False):
+        """Batched masked extraction of decoded images -> (maps (B, C, Hf,
+        Wf), valid (B, 2) int32 numpy); ``device_clahe`` equalises each
+        chunk on the device first.
+
+        A mixed gray/RGB list (which only the device CLAHE sees: the host
+        CLAHE unifies a mixed set onto 3 channels) extracts as two uniform
+        sub-batches on one shared canvas, each with its own mode's CLAHE,
+        and the maps are stitched back in input order.
+        """
+        if len({im.ndim for im in images}) > 1:
+            canvas = canvas_bucket([im.shape[:2] for im in images])
+            maps: list = [None] * len(images)
+            valids: list = [None] * len(images)
+            for want in (2, 3):
+                idx = [i for i, im in enumerate(images) if im.ndim == want]
+                m, v = self._extract(model, [images[i] for i in idx], canvas, device_clahe)
+                for j, i in enumerate(idx):
+                    maps[i], valids[i] = m[j], v[j]
+            return torch.stack(maps), np.stack(valids)
+        batch_u8, valid = pack_canvas(images, canvas_hw)
+        bs = max(1, int(self.config["tpu"]["extraction_batch"]))
+        chunks = (_pad_chunk(batch_u8[i : i + bs], valid[i : i + bs], bs)
+                  + (min(bs, len(images) - i),) for i in range(0, len(images), bs))
+        return self._run_extraction(model, chunks, len(images), device_clahe)
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _ingest_out_hw(hdr_wh: tuple[int, int], crop, scale: float) -> tuple[int, int]:
+        """Post-ingest (h, w) from a header's (width, height): the loader's
+        crop and resize arithmetic, so canvases are known before decoding."""
+        w, h = hdr_wh
+        ch, cw = math.floor(h * crop[0]), math.floor(w * crop[1])
+        return int((h - 2 * ch) * scale), int((w - 2 * cw) * scale)
+
+    def _file_mode(self, directory, f: str) -> str:
+        """One file's PIL mode from its header, memoised."""
+        key = str(Path(directory) / f)
+        mode = self._mode_cache.get(key)
+        if mode is None:
+            with Image.open(key) as im:
+                mode = im.mode
+            self._mode_cache[key] = mode
+        return mode
+
+    def _stream_applicable(self, directory, files: Sequence[str], hdr: dict,
+                           scale: float) -> bool:
+        """True when the streamed extraction can serve this file set: host
+        CLAHE on, every file an 8-bit gray or RGB mode (from its header: one
+        odd file mid-stream must not fail the stream) and every image at
+        least one pixel per CLAHE tile after crop and resize. Mixed L/RGB
+        sets stream: :meth:`_host_clahe` unifies them."""
+        if not self.config["tpu"]["clahe_host"] or not files:
+            return False
+        if any(self._file_mode(directory, f) not in ("L", "RGB") for f in files):
+            return False
+        crop = self.config["dataset"]["crop"]
+        tx, ty = self.config["model"]["clahe_tile_grid_size"]
+        return all(oh >= ty and ow >= tx for oh, ow in
+                   (self._ingest_out_hw(hdr[f], crop, scale) for f in files))
+
+    def _extract_streamed(self, model: torch.nn.Module, directory, files: Sequence[str],
+                          scale: float, hdr: dict):
+        """Ingest and extraction overlapped: one worker thread loads, host-
+        CLAHEs and packs chunk i+1 (and the next) onto the header-derived
+        canvas, in pinned memory on a card, while the device extracts chunk
+        i. Returns what :meth:`_extract` returns for the same images, which
+        it equals: the same canvas, chunks and batch shape.
+        """
+        crop = self.config["dataset"]["crop"]
+        n_threads = self.config["dataset"]["n_processes"]
+        canvas = canvas_bucket([self._ingest_out_hw(hdr[f], crop, scale) for f in files])
+        bs = max(1, int(self.config["tpu"]["extraction_batch"]))
+        # a mixed L/RGB set: every chunk on the 3-channel canvas, or an
+        # all-gray chunk would extract as gray
+        force_rgb = len({self._file_mode(directory, f) for f in files}) > 1
+        pin = self.device.type == "cuda"
+
+        def prep(chunk_files):
+            imgs = load_images(directory, chunk_files, scale, crop, n_threads, self.ingest_tiers)
+            eq = self._host_clahe(imgs)
+            if eq is None:
+                raise RuntimeError("streamed ingest: the host CLAHE cannot take the chunk "
+                                   f"starting at {chunk_files[0]} (unexpected image mode?)")
+            if force_rgb:
+                eq = [e if e.ndim == 3 else np.repeat(e[:, :, None], 3, axis=2) for e in eq]
+            batch, valid = (torch.from_numpy(a) for a in _pad_chunk(*pack_canvas(eq, canvas), bs))
+            if pin:
+                batch, valid = batch.pin_memory(), valid.pin_memory()
+            return batch, valid, len(chunk_files)
+
+        chunks = [files[i : i + bs] for i in range(0, len(files), bs)]
+        with ThreadPoolExecutor(max_workers=1, thread_name_prefix="shoeprint-stream") as pool:
+            def prepared():
+                futs: list = []
+                for ci in range(len(chunks)):
+                    while len(futs) < min(STREAM_LOOKAHEAD, len(chunks) - ci):
+                        futs.append(pool.submit(prep, chunks[ci + len(futs)]))
+                    yield futs.pop(0).result()
+
+            return self._run_extraction(model, prepared(), len(files), False)
 
     def _variant_plan(self, q_valid: np.ndarray, feat_canvas: tuple[int, int]) -> VariantPlan:
         comp = self.config["comparison"]
@@ -396,6 +642,7 @@ class Pipeline:
         def on_dev(a: np.ndarray) -> torch.Tensor:
             return torch.as_tensor(a, device=dev)
 
+        q_maps = torch.as_tensor(q_maps).to(dev)
         n_q, true_c, hc, wc = q_maps.shape
         plan = self._variant_plan(q_valid, (hc, wc))
         kernel_hw = (plan.template_canvas[0] - 2 * EDGE_CROP,
@@ -409,7 +656,10 @@ class Pipeline:
         scorer = score_direct if self.config["tpu"]["ncc_backend"] == "direct" else score_ncc
         # the kernel's tile plan is made on the host: its rows' half once per
         # probe batch, its prints' half once per gallery block
-        tile = kernel_tile() if scorer is score_ncc and dev.type == "cuda" else None
+        tile = None
+        if scorer is score_ncc and dev.type == "cuda":
+            self._join_prewarm()
+            tile = kernel_tile()
         rank_dev = bool(self.config["tpu"]["rank_on_device"])
         q_valid = np.asarray(q_valid)
         g_valid = np.asarray(g_valid)
@@ -487,42 +737,104 @@ class Pipeline:
             return DeviceScores(buf, inv_order)
         return out[:, inv_order]
 
-    def _cluster_features(self, plan):
-        """Ingest + extract one cluster: (q_maps, q_valid, g_maps, g_valid, q_files)."""
-        crop = self.config["dataset"]["crop"]
-        n_threads = self.config["dataset"]["n_processes"]
-        q_files = sorted(plan.files)
+    def _cluster_features(self, plan, next_plan=None):
+        """Ingest + extract one cluster: (q_maps, q_valid, g_maps, g_valid,
+        q_files).
+
+        With ``tpu.pipeline_clusters`` (the default) ``next_plan``'s features
+        start on the lookahead thread before this returns, so they are made
+        while this cluster scores; the next call takes them. Off, clusters
+        run one after another. Features are the same either way: the same
+        code on the same inputs.
+        """
+        la, self._lookahead = self._lookahead, None
+        if la is not None and la[0] is plan:
+            out = la[1].result()
+        else:
+            if la is not None:  # made for another plan: let it finish first
+                la[1].result()
+            out = self._cluster_features_impl(plan)
+        if next_plan is not None and self.config["tpu"]["pipeline_clusters"]:
+            if self._la_pool is None:
+                self._la_pool = ThreadPoolExecutor(max_workers=1,
+                                                   thread_name_prefix="shoeprint-lookahead")
+            self._lookahead = (next_plan, self._la_pool.submit(self._lookahead_features, next_plan))
+        return out
+
+    def _lookahead_features(self, plan):
+        # inference mode is per thread: the worker enters its own
+        with torch.inference_mode():
+            return self._cluster_features_impl(plan, lookahead=True)
+
+    def _cluster_gallery_state(self, plan, q_files: Sequence[str]):
+        """(gallery cache key, cached gallery features or None, stream?)."""
         gkey = GalleryFeatureCache.key(
             self.config["model"]["type"], plan.block, plan.scale,
             self.dataset.gallery_files,
             gallery_dir=self.dataset.gallery_dir, params=self._gcache_params,
         )
         g_cached = self.gallery_cache.get(gkey)
-        with self._stage("ingest"):
-            q_imgs = self._host_clahe(
-                load_images(self.dataset.query_dir, q_files, plan.scale, crop, n_threads)
-            )
-            g_imgs = None
-            if g_cached is None:
-                g_imgs = self._host_clahe(load_images(
-                    self.dataset.gallery_dir, self.dataset.gallery_files,
-                    plan.scale, crop, n_threads,
-                ))
+        stream = self._stream_applicable(
+            self.dataset.query_dir, q_files, self._q_hdr, plan.scale
+        ) and (g_cached is not None or self._stream_applicable(
+            self.dataset.gallery_dir, self.dataset.gallery_files, self._g_hdr, plan.scale))
+        return gkey, g_cached, stream
+
+    def _cluster_features_impl(self, plan, lookahead: bool = False):
+        """The pre-scoring stages of one cluster (the reference's
+        run.py:17-24). Streamed where the host CLAHE applies: then no
+        ``ingest`` stage, its time is inside ``extract-query`` and
+        ``extract-gallery``. Otherwise the sets are ingested, host-CLAHEd
+        where the native CLAHE takes both (else CLAHE runs on the device in
+        extraction) and extracted."""
+        if lookahead:
+            def stage(name):
+                return stage_timer(name, self.verbose, self.lookahead_seconds)
+        else:
+            stage = self._stage
+        crop = self.config["dataset"]["crop"]
+        n_threads = self.config["dataset"]["n_processes"]
+        q_files = sorted(plan.files)
+        gkey, g_cached, stream = self._cluster_gallery_state(plan, q_files)
         model = self._model_for_block(plan.block)
-        with self._stage("extract-query"):
-            q_maps, q_valid = self._extract(model, q_imgs)
-        with self._stage("extract-gallery"):
+        g_imgs = None
+        device_clahe = False
+        if stream:
+            with stage("extract-query"):
+                q_maps, q_valid = self._extract_streamed(
+                    model, self.dataset.query_dir, q_files, plan.scale, self._q_hdr)
+        else:
+            with stage("ingest"):
+                q_imgs = load_images(self.dataset.query_dir, q_files, plan.scale, crop,
+                                     n_threads, self.ingest_tiers)
+                if g_cached is None:
+                    g_imgs = load_images(self.dataset.gallery_dir, self.dataset.gallery_files,
+                                         plan.scale, crop, n_threads, self.ingest_tiers)
+                q_eq = self._host_clahe(q_imgs)
+                g_eq = None if g_imgs is None else self._host_clahe(g_imgs)
+                device_clahe = q_eq is None or (g_imgs is not None and g_eq is None)
+                if not device_clahe:
+                    q_imgs, g_imgs = q_eq, g_eq
+            with stage("extract-query"):
+                q_maps, q_valid = self._extract(model, q_imgs, device_clahe=device_clahe)
+        self.clahe_routes["device" if device_clahe else "host"] += 1
+        with stage("extract-gallery"):
             if g_cached is not None:
-                g_maps = torch.as_tensor(g_cached[0], device=self.device)
-                g_valid = np.asarray(g_cached[1])
+                g_maps, g_valid = torch.from_numpy(g_cached[0]), np.asarray(g_cached[1])
             else:
-                g_maps, g_valid = self._extract(model, g_imgs)
+                if stream:
+                    g_maps, g_valid = self._extract_streamed(
+                        model, self.dataset.gallery_dir, self.dataset.gallery_files,
+                        plan.scale, self._g_hdr)
+                else:
+                    g_maps, g_valid = self._extract(model, g_imgs, device_clahe=device_clahe)
                 self.gallery_cache.put(gkey, g_maps.cpu().numpy(), g_valid)
         return q_maps, q_valid, g_maps, g_valid, q_files
 
-    def run_cluster(self, plan) -> ClusterOutput:
-        """Score one cluster and rank (the reference's run.py:17-34 body)."""
-        q_maps, q_valid, g_maps, g_valid, q_files = self._cluster_features(plan)
+    def run_cluster(self, plan, next_plan=None) -> ClusterOutput:
+        """Score one cluster and rank (the reference's run.py:17-34 body);
+        ``next_plan``, where given, is the cluster to prepare meanwhile."""
+        q_maps, q_valid, g_maps, g_valid, q_files = self._cluster_features(plan, next_plan)
         scores = self._score_cluster(q_maps, q_valid, g_maps, g_valid)
         pairs = self.dataset.matching_pairs(q_files)
         if isinstance(scores, DeviceScores):
@@ -533,10 +845,39 @@ class Pipeline:
             for qf, rank in zip(q_files, ranks):
                 print(f"Print {parse_image_id(qf, self.dataset.type)} "
                       f"true match ranked {rank}")
+            print(f"ingest tiers so far {dict(self.ingest_tiers)}, "
+                  f"CLAHE routes {dict(self.clahe_routes)}")
         return ClusterOutput(ranks, pairs, len(q_files), plan.block, plan.scale, scores)
 
+    def close(self) -> None:
+        """Retire the lookahead and prewarm threads: wait for a lookahead
+        still running (a thread left inside a device call at interpreter exit
+        can crash it), then stop its pool and join the prewarm build."""
+        la, self._lookahead = self._lookahead, None
+        if la is not None:
+            try:
+                la[1].result()
+            except Exception as exc:  # noqa: BLE001 — its cluster is not scored
+                warnings.warn(f"the unused lookahead for the next cluster failed: {exc!r}")
+        if self._la_pool is not None:
+            self._la_pool.shutdown(wait=True)
+            self._la_pool = None
+        if self._prewarm is not None:
+            self._prewarm.join()
+            self._prewarm = None
+
     def run(self):
-        for plan in self.plans:
-            if self.verbose:
-                print(f"Cluster has {len(plan.files)} items.")
-            yield self.run_cluster(plan)
+        """Every cluster in plan order, one :class:`ClusterOutput` each; with
+        ``tpu.profile_dir`` one Chrome trace per cluster,
+        ``{profile_dir}/cluster{i}.json``."""
+        profile_dir = self.config["tpu"]["profile_dir"]
+        try:
+            for i, plan in enumerate(self.plans):
+                if self.verbose:
+                    print(f"Cluster has {len(plan.files)} items.")
+                nxt = self.plans[i + 1] if i + 1 < len(self.plans) else None
+                with profile_trace(profile_dir, f"cluster{i}", self.device):
+                    out = self.run_cluster(plan, nxt)
+                yield out
+        finally:
+            self.close()

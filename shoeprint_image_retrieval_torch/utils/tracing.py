@@ -1,14 +1,17 @@
-"""Stage wall-clock timers and device timing.
+"""Stage wall-clock timers, device timing and profiler traces.
 
-Device work is asynchronous, so a timer on a CUDA pipeline synchronises the
-device when its stage ends: the time it records is the stage's own, not the
-time to enqueue it.
+Device work is asynchronous, so a timer given a CUDA device synchronises it
+when its stage ends: the time it records is the stage's own, not the time
+to enqueue it. Each stage is also a ``torch.profiler`` range of its name, so
+a trace (:func:`profile_trace`) shows where one stage ends and the next
+begins.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+from pathlib import Path
 
 import torch
 
@@ -18,15 +21,39 @@ def stage_timer(name: str, verbose: bool = True, sink: dict | None = None,
                 device: torch.device | None = None):
     t0 = time.perf_counter()
     try:
-        yield
+        with torch.profiler.record_function(name):
+            yield
+            if device is not None and device.type == "cuda":
+                torch.cuda.synchronize(device)
     finally:
-        if device is not None and device.type == "cuda":
-            torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
         if sink is not None:
             sink[name] = sink.get(name, 0.0) + dt
         if verbose:
             print(f"[{name}] {dt:.2f}s")
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str | Path | None, name: str = "trace",
+                  device: torch.device | None = None):
+    """A ``torch.profiler`` trace of the block, written as the Chrome trace
+    ``{log_dir}/{name}.json``; host and CUDA activity on a card, host only
+    on the CPU. A no-op when ``log_dir`` is empty (the JAX package's
+    ``profile_trace`` over ``jax.profiler``)."""
+    if not log_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = device is not None and device.type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(str(out / f"{name}.json"))
 
 
 def device_ms(fn, reps: int, device: torch.device) -> float:

@@ -268,6 +268,102 @@ def test_probe_geometry_matches_the_model():
                                          if precision == "f32_3xtf32" else 0)
 
 
+def test_device_clahe_on_the_card_matches_native(tmp_path, monkeypatch):
+    """``clahe_host = false`` on a CUDA pipeline: CLAHE runs on the card
+    (every call's tensors are there), bit-exact to the native host CLAHE
+    (gray and RGB), below the tile grid equal to its CPU run, and the run
+    ranks as the host-CLAHE run does."""
+    _need_card()
+    from shoeprint_image_retrieval_torch.config import load_config
+    from shoeprint_image_retrieval_torch.data import native_ingest
+    from shoeprint_image_retrieval_torch.ops import clahe
+    from shoeprint_image_retrieval_torch.retrieval import engine
+
+    rng = np.random.default_rng(3)
+    sizes = [(75, 65), (76, 66), (64, 64), (37, 53), (120, 90)]
+    gray = [rng.integers(0, 256, hw, dtype=np.uint8) for hw in sizes]
+    rgb = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for hw in sizes]
+    pipe = engine.Pipeline(load_config(_pipeline_config(tmp_path)), weights_dir=None,
+                           verbose=False, device="cuda")
+    for imgs in (gray, rgb):
+        batch, valid = engine.pack_canvas(imgs)
+        got = pipe._device_clahe(torch.from_numpy(batch).cuda(), torch.from_numpy(valid).cuda())
+        assert got.is_cuda
+        got = got.cpu().numpy()
+        for i, want in enumerate(native_ingest.clahe_batch(imgs, 2.0, (8, 8))):
+            np.testing.assert_array_equal(got[i, : want.shape[0], : want.shape[1]], want)
+    tiny = torch.from_numpy(rng.integers(0, 256, (6, 7, 12), dtype=np.uint8))
+    tiny_hw = torch.tensor([[7, 12], [3, 3], [1, 7], [7, 1], [5, 9], [2, 12]], dtype=torch.int32)
+    assert torch.equal(clahe.clahe_batched_dynamic(tiny.cuda(), tiny_hw.cuda()).cpu(),
+                       clahe.clahe_batched_dynamic(tiny, tiny_hw))
+
+    devices = []
+
+    def spy(u8, valid, *args):
+        devices.append((u8.device.type, valid.device.type))
+        return clahe.clahe_batched_dynamic(u8, valid, *args)
+
+    monkeypatch.setattr(engine, "clahe_batched_dynamic", spy)
+    ranks = {}
+    for host in (True, False):
+        cfg = load_config(_pipeline_config(tmp_path / str(host)))
+        cfg["tpu"]["clahe_host"] = host
+        run = engine.Pipeline(cfg, weights_dir=None, verbose=False, device="cuda")
+        ranks[host] = [o.ranks.tolist() for o in run.run()]
+        assert set(run.clahe_routes) == {"host" if host else "device"}
+    assert devices and set(devices) == {("cuda", "cuda")}
+    assert ranks[True] == ranks[False]
+
+
+def test_prewarm_failed_build_raises_at_first_scoring_call(tmp_path, monkeypatch):
+    """``prewarm`` builds the NCC kernel on a thread from the moment the
+    pipeline is made; a build that fails there is raised by the first
+    scoring call, not lost."""
+    _need_card()
+    from shoeprint_image_retrieval_torch.config import load_config
+    from shoeprint_image_retrieval_torch.ops import build
+    from shoeprint_image_retrieval_torch.retrieval.engine import Pipeline
+
+    real_load, calls = build.load, []
+
+    def failing_once(name):
+        calls.append(name)
+        if len(calls) == 1:
+            raise RuntimeError("nvcc failed (injected)")
+        return real_load(name)
+
+    ncc_kernel._library.cache_clear()
+    ncc_kernel.kernel_tile.cache_clear()
+    monkeypatch.setattr(build, "load", failing_once)
+    cfg = load_config(_pipeline_config(tmp_path))
+    cfg["tpu"]["prewarm"] = True
+    pipe = Pipeline(cfg, weights_dir=None, verbose=False, device="cuda")  # does not raise
+    with pytest.raises(RuntimeError, match="prewarm") as err:
+        list(pipe.run())
+    assert "injected" in str(err.value.__cause__)
+    assert calls == ["ncc_score"] and pipe._prewarm is None
+
+
+def test_maps_over_budget_go_to_pinned_host_memory(tmp_path, monkeypatch):
+    """Above ``SIR_DEVICE_MAPS_MAX`` the extracted maps leave the card for
+    pinned host memory; the ranks do not change."""
+    _need_card()
+    from shoeprint_image_retrieval_torch.config import load_config
+    from shoeprint_image_retrieval_torch.retrieval.engine import Pipeline
+
+    cfg_path = _pipeline_config(tmp_path)
+    ranks = {}
+    for budget in ("0", str(int(2e9))):
+        monkeypatch.setenv("SIR_DEVICE_MAPS_MAX", budget)
+        pipe = Pipeline(load_config(cfg_path), weights_dir=None, verbose=False, device="cuda")
+        q_maps, _, g_maps, _, _ = pipe._cluster_features(pipe.plans[0])
+        on_host = budget == "0"
+        for maps in (q_maps, g_maps):
+            assert maps.is_cuda != on_host and (not on_host or maps.is_pinned())
+        ranks[budget] = [o.ranks.tolist() for o in pipe.run()]
+    assert ranks["0"] == ranks[str(int(2e9))]
+
+
 def test_blocked_engine_equals_unblocked(tmp_path):
     """gallery_block and rank_on_device on the card: identical ranks and
     scores to one block with host ranks."""

@@ -46,6 +46,13 @@ MEASUREMENT_MODULES = {
     "shoeprint_image_retrieval_torch.benchmarks.mxu_probe",
     "shoeprint_image_retrieval_torch.benchmarks.bench_10k",
 }
+# modules added with the front end: device CLAHE, the parity harness and the
+# extraction bench
+FRONT_END_MODULES = {
+    "shoeprint_image_retrieval_torch.ops.clahe",
+    "shoeprint_image_retrieval_torch.retrieval.parity",
+    "shoeprint_image_retrieval_torch.benchmarks.bench_extract",
+}
 
 
 def test_port_imports_with_jax_blocked():
@@ -55,6 +62,7 @@ def test_port_imports_with_jax_blocked():
     names = set(json.loads(proc.stdout.strip().splitlines()[-1]))
     assert len(names) >= 25  # every module of the port was imported
     assert MEASUREMENT_MODULES <= names
+    assert FRONT_END_MODULES <= names
 
 
 def test_no_source_names_jax_or_the_jax_package():
