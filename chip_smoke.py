@@ -41,21 +41,42 @@ Phases, each printing one JSON line:
    trace, per cluster: the device's busy and idle share, its 5 ops with the
    most time and its 3 longest idle gaps with the host op that spans each
    (:func:`trace_summary`).
-4. ``front_end``: on the fixture's ingested images, the device CLAHE on the
+4. ``fft``: the fixture's EfficientNetV2_M config (``main_path``'s) with
+   ``ncc_backend = "fft"`` on the card (``ops/ncc.py``: cuFFT through
+   ``torch.fft``, one FFT cache a cluster). Ranks and S-lines must equal
+   ``main_path``'s plain run; reports the max |Δ| of the scores, the
+   ``score`` stage against the kernel runs' and the FFT cache's bytes a
+   block.
+5. ``families``: the fixture with the ``[tpu]`` defaults through three
+   other families at full width from seeded init, each plain then kernel:
+   VGG16 (blocks 24 / 17, skipping 18-23: C = 512 at /16, 256 at /8),
+   DenseNet_201 (8 / 6, skipping 7: 256 and 128) and EfficientNet_B7
+   (6 / 4, skipping 5: 224 and 80). Ranks and S-lines identical, scores
+   within 1e-4, the NCC kernel launched for each model. Reports stage
+   seconds, peak device memory, score seconds a cluster and, per kernel
+   call (CUDA events around the engine's ``score_ncc``), its C, rows,
+   prints, ms and its bound by ``kernel``'s formula.
+6. ``front_end``: on the fixture's ingested images, the device CLAHE on the
    card against the native host CLAHE, gray (``clahe_batched_dynamic``)
    and RGB (the engine's LAB route, on colour images made from the gray
    ones), and on random sizes below the tile grid against its own CPU run;
    all bit-exact; the times of both. Then the streamed extraction of the
    gallery against the batched one: maps bit-identical, or else the max
    |Δ| is reported and the ranks must be identical.
-5. ``extract``: ``benchmarks/bench_extract.run`` at full size (batch 32, a
+7. ``extract``: ``benchmarks/bench_extract.run`` at full size (batch 32, a
    704 x 704 canvas, block 6): images/s with CLAHE on the card and on the
    host.
-6. ``parity``: ``retrieval/parity.run_parity`` on a fixture of 6 prints and
+8. ``parity``: ``retrieval/parity.run_parity`` on a fixture of 6 prints and
    3 queries (the NumPy oracle's time bounds its size): the pipeline's
    ranks against the oracle's (cv2's CLAHE, extraction at native shape,
    the NumPy correlation), which must be identical.
-7. ``mxu_probe``: the measurement path ``benchmarks/mxu_probe.probe_kernel``
+9. ``backbones``: all 13 model strings at full depth and width from seeded
+   init on one masked batch of two images (a 160 x 144 canvas; valid 160 x
+   144 and 121 x 97), on the card against the same module and weights on
+   the CPU: within 1e-4 of the activation scale, valid sizes equal to
+   ``models/summary.output_size``. Reports each forward's ms (CUDA events)
+   and output (C, H, W).
+10. ``mxu_probe``: the measurement path ``benchmarks/mxu_probe.probe_kernel``
    (launch counts reset just before it and read just after) runs the probe
    kernel ``ops/mma_probe`` in f32, 3xTF32 and bf16 at the JAX default shape
    (512 x 1156 x 128, 48 products a step, 100 steps) and at the NCC row count
@@ -69,26 +90,28 @@ Phases, each printing one JSON line:
    the parts each tile's products are cut into, scratch bytes), beside
    ``probe_matmul``'s 4096^3 rates and each leg's launch geometry (tile,
    ring stages, consumer warpgroups, shared memory, blocks a cluster).
-8. ``bench``: the port's ``bench.py`` at full width (G = 300, C = 176,
+11. ``bench``: the port's ``bench.py`` at full width (G = 300, C = 176,
    PB = 56) with Q = 56 probes: engine and kernel-level probes/s.
-9. ``gallery_blocks``: the same workload through ``Pipeline._score_cluster``
+12. ``gallery_blocks``: the same workload through ``Pipeline._score_cluster``
    with ``gallery_block`` 0 and 128 (three blocks, the last of 44 prints),
    each with ``rank_on_device`` off and on. Scores must agree within 1e-6
    and ranks be identical. Reports the auto block ``mem_get_info`` gives at
    a 10,240-print gallery.
-10. ``bench_10k``: the port's ``benchmarks/bench_10k.py`` at G = 10,240,
+13. ``bench_10k``: the port's ``benchmarks/bench_10k.py`` at G = 10,240,
    C = 176, PB = 128, in blocks of 2048 prints (five), with its checks
    (device ranks = host ranks, an oracle subsample within 5e-4, every
    planted match at rank 1).
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit as
-``nvidia-smi`` prints them, and as the last line
+Every phase reports its seconds (``wall_s``). Then a ``{"kernels": [...]}``
+line, the card's name and power limit as ``nvidia-smi`` prints them, and as
+the last line
 ``{"ok": true, "device": {...}}``. Any fault exits non-zero before that line;
 without a CUDA device it exits 2 and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import re
@@ -128,6 +151,21 @@ G_10K, BLOCK_10K = 10240, 2048  # bench_10k: five blocks
 # every print, channel by channel, on the host (12 prints x 4 queries took
 # 175 s on the H100's host); this fixture keeps it near a minute
 PARITY_GALLERY, PARITY_QUERIES = 6, 3
+
+# backbones: every model string at full depth on one masked batch
+BACKBONE_CANVAS = (160, 144)
+BACKBONE_VALID = ((160, 144), (121, 97))
+# card vs CPU forward, relative to the activation scale (max |CPU output|):
+# float32 convolutions in other algorithms (TF32 off). Relative, not
+# absolute: from seeded init the B-series' activations shrink to ~1e-12
+BACKBONE_TOL = 1e-4
+# families: (model, start_block, end_block, skip_blocks), each planned at
+# stride 16 and stride 8 on the fixture
+FAMILIES = (
+    ("VGG16", 24, 17, [18, 19, 20, 21, 22, 23]),
+    ("DenseNet_201", 8, 6, [7]),
+    ("EfficientNet_B7", 6, 4, [5]),
+)
 
 ROTATIONS = [-15, -9, -3, 3, 9, 15, 180]
 SCALES = [1.02, 1.04, 1.08]
@@ -331,6 +369,7 @@ def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: in
     from shoeprint_image_retrieval_torch.ops import ncc_kernel
     from shoeprint_image_retrieval_torch.ops.ncc_direct import row_slots, score_direct
 
+    t0 = time.perf_counter()
     edge_err = edge_cases(device)
     cache, packed, layout, (uniq, inv), row_truth, c = main_shape_inputs(pb, device, g, c)
     launches0 = ncc_kernel.launch_ncc.launches
@@ -395,6 +434,7 @@ def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: in
         "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12,
         "bound_share": max(t_ops, t_bytes) / kernel_ms,
         "comparison_launches": ncc_kernel.launch_ncc.launches - launches0,
+        "wall_s": time.perf_counter() - t0,
     }
 
 
@@ -436,7 +476,7 @@ def run_pipeline(config: dict, backend: str, device: str = "cuda", **tpu):
         "backend": backend, "tpu": tpu, "wall_s": wall, "stages_s": pipe.stage_seconds,
         "lookahead_s": pipe.lookahead_seconds, "score_s_per_cluster": score_s,
         "ingest_tiers": dict(pipe.ingest_tiers), "clahe": dict(pipe.clahe_routes),
-        "gallery_blocks": pipe.gallery_blocks_scored,
+        "gallery_blocks": pipe.gallery_blocks_scored, "cache_bytes": pipe.cache_bytes,
         "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None,
     }
 
@@ -525,10 +565,11 @@ def fixture_config(dataset: Path) -> dict:
 
 
 def phase_main_path(tmp: Path, device: str = "cuda", gallery: int = 120,
-                    queries: int = 30) -> tuple[dict, int]:
+                    queries: int = 30) -> tuple[dict, int, tuple]:
     """Plain, kernel, kernel, plain, so that neither backend always pays the
     first run's warm-up; then the kernel with CLAHE on the card, with a
-    trace, and without the cluster lookahead."""
+    trace, and without the cluster lookahead. Returns the phase's line, the
+    kernel's launches and the first plain run (outputs, S-lines, info)."""
     import numpy as np
 
     from scripts.make_synthetic_impress import generate
@@ -575,7 +616,7 @@ def phase_main_path(tmp: Path, device: str = "cuda", gallery: int = 120,
             t["device_events"] for t in traces.values())):
         raise AssertionError(f"the profiled run's traces hold no device events: {traces}")
     return {
-        "phase": "main_path", "dataset_gen_s": gen_s,
+        "phase": "main_path", "dataset_gen_s": gen_s, "wall_s": time.perf_counter() - t0,
         "clusters": [{"queries": o.n_queries, "block": o.block, "scale": o.scale,
                       "ranks": o.ranks.tolist()} for o in p_outs],
         "s_lines": p_lines, "kernel_launches": launches,
@@ -583,7 +624,173 @@ def phase_main_path(tmp: Path, device: str = "cuda", gallery: int = 120,
         "scores_max_abs_diff": max_err,
         "kernel_runs_max_abs_diff_vs_run_1": kernel_err,
         "traces": traces,
-    }, launches
+    }, launches, runs[0]
+
+
+def held_runs(name: str, got: tuple, want: tuple, tol: float) -> float:
+    """Ranks and S-lines of two fixture runs identical, scores within
+    ``tol``; -> the max |Δ| of the scores."""
+    import numpy as np
+
+    (g_outs, g_lines, _), (w_outs, w_lines, _) = got, want
+    if len(g_outs) != len(w_outs):
+        raise AssertionError(f"{name}: planned different clusters")
+    err = 0.0
+    for g, w in zip(g_outs, w_outs):
+        if not np.array_equal(g.ranks, w.ranks):
+            raise AssertionError(f"{name}: ranks differ {g.ranks} vs {w.ranks}")
+        err = max(err, float(np.abs(g.scores - w.scores).max()))
+    if g_lines != w_lines:
+        raise AssertionError(f"{name}: S-lines differ {g_lines} vs {w_lines}")
+    if err > tol:
+        raise AssertionError(f"{name}: scores differ by {err} > {tol}")
+    return err
+
+
+def phase_fft(dataset: Path, plain: tuple, kernel_score_s: list[float],
+              device: str = "cuda") -> dict:
+    """The fixture's main-path config with ``ncc_backend = "fft"``: ranks and
+    S-lines against ``main_path``'s plain run."""
+    t0 = time.perf_counter()
+    run = run_pipeline(fixture_config(dataset), "fft", device)
+    err = held_runs("fft vs plain", run, plain, TOL)
+    info = run[2]
+    return {"phase": "fft", "clusters": len(run[0]), "s_lines": run[1],
+            "scores_max_abs_diff_vs_plain": err, "run": info,
+            "score_s": info["stages_s"]["score"], "kernel_runs_score_s": kernel_score_s,
+            "cache_bytes_per_block": info["cache_bytes"], "wall_s": time.perf_counter() - t0}
+
+
+@contextlib.contextmanager
+def timed_launches():
+    """Time every NCC kernel call the engine makes inside the block: CUDA
+    events around the engine's ``score_ncc`` (which, with the engine's tile
+    plan, only launches the kernel; the kernel's launch count is untouched).
+    Yields a list that holds, after the block, one record a call: C, rows,
+    prints, canvas, ms and the bound by ``phase_kernel``'s formula."""
+    import numpy as np
+    import torch
+
+    from shoeprint_image_retrieval_torch.retrieval import engine
+
+    real = engine.score_ncc
+    pending, records = [], []
+
+    def timed(cache, packed, layout, true_channels, slot_hw=None, slot_map=None, plan=None):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(cache, packed, layout, true_channels, slot_hw, slot_map, plan=plan)
+        end.record()
+        moved = sum(t.numel() * t.element_size() for t in (*cache, packed.kernels,
+                                                            plan[0].table, out))
+        pending.append((start, end, tuple(packed.kernels.shape), tuple(cache.p0.shape),
+                        cache.valid_hw.clone(), plan[0], moved))
+        return out
+
+    engine.score_ncc = timed
+    try:
+        yield records
+    finally:
+        engine.score_ncc = real
+        torch.cuda.synchronize()
+        for start, end, (n, c, hk, wk), (_, g, hb, wb), gvalid, rows, moved in pending:
+            row_hw = rows.windows[np.arange(n) // rows.m_tile, rows.slots]
+            flops = needed_flop(row_hw, gvalid.cpu().numpy(), c, (hb, wb))
+            t_ops = flops / PEAK_3XTF32_FLOPS * 1e3
+            t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+            ms = start.elapsed_time(end)
+            records.append({"channels": c, "rows": n, "prints": g, "canvas": [hb, wb],
+                            "kernel_hw": [hk, wk], "ms": ms, "bound_ms": max(t_ops, t_bytes),
+                            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                            "needed_flop": flops, "bytes": moved,
+                            "bound_share": max(t_ops, t_bytes) / ms})
+
+
+def phase_families(dataset: Path, device: str = "cuda", families=FAMILIES) -> dict:
+    """VGG16, DenseNet_201 and EfficientNet_B7 through the fixture, plain then
+    kernel: the NCC kernel at the channel counts these backbones give."""
+    from shoeprint_image_retrieval_torch.ops import ncc_kernel
+
+    t0 = time.perf_counter()
+    base = fixture_config(dataset)
+    launch = ncc_kernel.launch_ncc
+    out = {"phase": "families", "models": {}}
+    for model, start, end, skip in families:
+        t1 = time.perf_counter()
+        cfg = copy.deepcopy(base)
+        cfg["model"].update(type=model, start_block=start, end_block=end, skip_blocks=skip)
+        plain = run_pipeline(cfg, "direct", device)
+        launch.launches = 0
+        with timed_launches() as calls:
+            kernel = run_pipeline(cfg, "auto", device)
+        launches = launch.launches
+        if launches < 1:
+            raise AssertionError(f"{model}: the fixture's run did not launch the NCC kernel")
+        err = held_runs(f"{model} kernel vs plain", kernel, plain, TOL)
+        out["models"][model] = {
+            "blocks": [start, end, skip],
+            "clusters": [{"queries": o.n_queries, "block": o.block, "scale": o.scale,
+                          "ranks": o.ranks.tolist()} for o in plain[0]],
+            "s_lines": plain[1], "kernel_launches": launches, "scores_max_abs_diff": err,
+            "plain": plain[2], "kernel": kernel[2], "ncc_calls": calls,
+            "wall_s": time.perf_counter() - t1,
+        }
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_backbones(device: str = "cuda", names=None, canvas=BACKBONE_CANVAS,
+                    valid=BACKBONE_VALID, reps: int = REPS) -> dict:
+    """Every model string at full depth and width from seeded init: the card
+    against the same module and weights on the CPU, valid sizes against
+    ``summary.output_size``."""
+    import numpy as np
+    import torch
+
+    from shoeprint_image_retrieval_torch.models.registry import REGISTRY, get_backbone
+    from shoeprint_image_retrieval_torch.models.summary import output_size
+    from shoeprint_image_retrieval_torch.models.weights import seeded_init
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    rng = np.random.default_rng(0)
+    x = np.zeros((len(valid), 3, *canvas), np.float32)
+    for i, (h, w) in enumerate(valid):
+        x[i, :, :h, :w] = rng.normal(size=(3, h, w))
+    x_cpu, v_cpu = torch.from_numpy(x), torch.tensor(valid, dtype=torch.int32)
+    x_dev, v_dev = x_cpu.to(dev), v_cpu.to(dev)
+    out = {"phase": "backbones", "canvas": list(canvas), "valid": [list(v) for v in valid],
+           "models": {}}
+    for name in names or REGISTRY:
+        t1 = time.perf_counter()
+        features = get_backbone(name).build(None)
+        seeded_init(features, name)
+        features.eval()
+        with torch.inference_mode():
+            want, want_v = features(x_cpu, v_cpu)
+            features.to(dev)
+            got, got_v = features(x_dev, v_dev)
+            ms = cuda_ms(lambda: features(x_dev, v_dev), reps) if dev.type == "cuda" else None
+        got, got_v = got.cpu(), got_v.cpu()
+        sizes = [output_size(features, hw) for hw in valid]
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not torch.isfinite(got).all() or not 0 < scale or err > BACKBONE_TOL * scale:
+            raise AssertionError(f"{name}: card vs CPU max abs err {err} (scale {scale})")
+        if not (torch.equal(got_v, want_v)
+                and [tuple(s[1:]) for s in sizes] == [tuple(v) for v in got_v.tolist()]
+                and all(s[0] == got.shape[1] for s in sizes)):
+            raise AssertionError(f"{name}: valid sizes {got_v.tolist()} / {want_v.tolist()} "
+                                 f"against summary.output_size {sizes}")
+        out["models"][name] = {
+            "chw": list(sizes[0]), "chw_second": list(sizes[1]), "forward_ms": ms,
+            "max_abs_err": err, "scale": scale,
+            "params": sum(p.numel() for p in features.parameters()),
+            "wall_s": time.perf_counter() - t1,
+        }
+        del features, got, want
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 def phase_front_end(dataset: Path, device: str = "cuda", reps: int = REPS) -> dict:
@@ -881,11 +1088,17 @@ def main() -> int:
     kern = phase_kernel()
     emit(kern)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        main_path, launches = phase_main_path(Path(tmp))
+        main_path, launches, plain = phase_main_path(Path(tmp))
         emit(main_path)
-        emit(phase_front_end(Path(tmp) / "Dataset"))
+        dataset = Path(tmp) / "Dataset"
+        kernel_score_s = [r["stages_s"]["score"] for r in main_path["runs"]
+                          if r["backend"] == "auto"]
+        emit(phase_fft(dataset, plain, kernel_score_s))
+        emit(phase_families(dataset))
+        emit(phase_front_end(dataset))
         emit(phase_extract())
         emit(phase_parity(Path(tmp)))
+    emit(phase_backbones())
     probe, probe_launches = phase_mxu_probe()
     emit(probe)
     emit(phase_bench())

@@ -12,20 +12,21 @@ Same parse as ``shoeprint_image_retrieval_tpu/config.py``: plain TOML, the
   take the images exactly, streamed with extraction; false: CLAHE on the
   device in the extraction step), ``ncc_backend`` (``auto``/``pallas``
   = the CUDA kernel on a card, ``direct`` = its plain PyTorch version; on
-  the CPU all three are the plain version), ``gallery_block`` (prints per
+  the CPU all three are the plain version; ``fft`` = the FFT correlation
+  of ``ops/ncc.py`` on either device), ``gallery_block`` (prints per
   gallery block; 0 = the largest block that fits the card's free memory,
-  one block on the CPU), ``rank_on_device`` (scores stay on the device
-  and ranks are counted there; ties in height-sorted column order),
+  one block on the CPU, and for ``fft`` the whole gallery),
+  ``rank_on_device`` (scores stay on the device and ranks are counted
+  there; ties in height-sorted column order; ``fft`` ignores it),
   ``pipeline_clusters`` (the next cluster's ingest and extraction on a
   lookahead thread while this one scores), ``prewarm`` (on a card, the NCC
   kernel builds on a thread from the moment the pipeline is made; nothing
-  on the CPU) and ``profile_dir`` (one ``torch.profiler`` Chrome trace per
-  cluster there; empty = none);
+  on the CPU or for ``fft``) and ``profile_dir`` (one ``torch.profiler``
+  Chrome trace per cluster there; empty = none);
 * read and ignored: ``mesh_shape`` <= 1;
 * refused with ``NotImplementedError`` naming the ROADMAP item that will
-  port them: ``ncc_backend="fft"``, ``mesh_shape`` > 1, a non-empty
-  ``fusion_blocks``, ``pruned_scoring`` and ``precision``/``cache_dtype`` =
-  ``"bfloat16"``.
+  port them: ``mesh_shape`` > 1, a non-empty ``fusion_blocks``,
+  ``pruned_scoring`` and ``precision``/``cache_dtype`` = ``"bfloat16"``.
 """
 
 from __future__ import annotations
@@ -83,9 +84,7 @@ def load_config(config_file: Path | str) -> dict:
 def check_supported(config: dict) -> None:
     """Raise for ``[tpu]`` values that need a later slice of the port."""
     tpu = config["tpu"]
-    if tpu["ncc_backend"] == "fft":
-        raise not_ported("tpu.ncc_backend = 'fft'", 4, "FFT backend")
-    if tpu["ncc_backend"] not in ("auto", "pallas", "direct"):
+    if tpu["ncc_backend"] not in ("auto", "pallas", "direct", "fft"):
         raise LookupError(f"Unknown tpu.ncc_backend: {tpu['ncc_backend']!r}")
     if tpu["variant_mode"] not in ("reference", "full"):
         raise LookupError(f"Unknown tpu.variant_mode: {tpu['variant_mode']!r}")

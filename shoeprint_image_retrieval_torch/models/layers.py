@@ -11,7 +11,13 @@ through the backbone as one NCHW batch, with each sample's valid size
   exactly the native conv's implicit zero padding; positions beyond the
   native output extent are re-zeroed so they cannot leak into deeper layers.
 * batchnorm (inference): the affine shift breaks zeros, so re-zero after.
-* silu / sigmoid-scale: zero-preserving.
+* silu / relu / sigmoid-scale: zero-preserving.
+* max / avg pool: a valid output window lies inside the valid region except
+  at the boundary, where torch ignores padding (max pool) or counts it
+  (avg pool, ``count_include_pad``). A boundary max window may also read the
+  masked zeros; every max pool of these backbones follows a ReLU, so those
+  zeros cannot exceed the window's max unless the max is 0, and then both
+  give 0. Outputs beyond the native extent are re-zeroed.
 * squeeze-excitation: the global mean is the masked sum over the per-sample
   valid pixel count, the native mean.
 
@@ -77,6 +83,30 @@ def batchnorm(
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)  # silu(0) == 0: mask-preserving
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)  # relu(0) == 0: mask-preserving
+
+
+def max_pool(
+    x: torch.Tensor, valid_hw: torch.Tensor, *, kernel: int, stride: int, padding: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """torch MaxPool2d on a masked batch (padding never wins a max; the
+    masked zeros cannot either, see the module docstring)."""
+    y = F.max_pool2d(x, kernel, stride, padding)
+    new_valid = conv_out_size(valid_hw, kernel, stride, padding)
+    return remask(y, new_valid), new_valid
+
+
+def avg_pool(
+    x: torch.Tensor, valid_hw: torch.Tensor, *, kernel: int, stride: int, padding: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """torch AvgPool2d with ``count_include_pad=True`` (the torchvision
+    default) on a masked batch."""
+    y = F.avg_pool2d(x, kernel, stride, padding, count_include_pad=True)
+    new_valid = conv_out_size(valid_hw, kernel, stride, padding)
+    return remask(y, new_valid), new_valid
 
 
 def masked_global_mean(x: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:

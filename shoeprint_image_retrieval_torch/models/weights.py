@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .densenet import CHILD_NAMES as DENSENET_NAMES
 from .efficientnet import Features
 from .registry import get_backbone
 
@@ -92,10 +93,11 @@ def build_model(
     model_type: str,
     block: int,
     weights_dir: str | Path | None = "weights",
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Features:
     """Truncated backbone ``features[:block]`` with weights, in eval mode on
-    ``device`` (reference Model.__init__, network.py:93-195)."""
+    ``device`` (the card unless the caller asks for the CPU; reference
+    Model.__init__, network.py:93-195)."""
     features = get_backbone(model_type).build(block)
     path = find_checkpoint(weights_dir, model_type)
     if path is not None:
@@ -113,34 +115,75 @@ def build_model(
 
 def _cna(sd: dict, prefix: str, p: dict) -> None:
     sd[f"{prefix}.0.weight"] = p["conv"]["weight"]
+    _bn(sd, f"{prefix}.1", p["bn"])
+
+
+def _bn(sd: dict, prefix: str, p: dict) -> None:
     for k in _BN_KEYS:
-        sd[f"{prefix}.1.{k}"] = p["bn"][k]
+        sd[f"{prefix}.{k}"] = p[k]
+
+
+def _conv(sd: dict, prefix: str, p: dict) -> None:
+    for k in ("weight", "bias"):
+        if k in p:
+            sd[f"{prefix}.{k}"] = p[k]
+
+
+def _stage(sd: dict, prefix: str, blocks: dict) -> None:
+    """EfficientNet stage: MBConv blocks carry ``dw``/``se`` (and ``expand``
+    unless their expand ratio is 1), fused blocks ``project`` (and
+    ``expand`` unless 1)."""
+    for j, blk in blocks.items():
+        bp = f"{prefix}.{j}.block"
+        idx = 0
+        if "expand" in blk:
+            _cna(sd, f"{bp}.{idx}", blk["expand"])
+            idx += 1
+        if "dw" in blk:
+            _cna(sd, f"{bp}.{idx}", blk["dw"])
+            for fc in ("fc1", "fc2"):
+                _conv(sd, f"{bp}.{idx + 1}.{fc}", blk["se"][fc])
+            idx += 2
+        _cna(sd, f"{bp}.{idx}", blk["project"])
+
+
+def _child(sd: dict, prefix: str, child: dict) -> None:
+    """One ``features`` child of any JAX backbone tree, by its keys."""
+    if not child:  # ReLU, pools
+        return
+    if "conv" in child and "bn" in child:  # EfficientNet conv-BN-act
+        _cna(sd, prefix, child)
+    elif "running_var" in child:  # VGG BatchNorm, DenseNet norm0 / norm5
+        _bn(sd, prefix, child)
+    elif "weight" in child:  # VGG conv (with bias), DenseNet conv0
+        _conv(sd, prefix, child)
+    elif "norm" in child:  # DenseNet transition
+        _bn(sd, f"{prefix}.norm", child["norm"])
+        _conv(sd, f"{prefix}.conv", child["conv"])
+    elif all("norm1" in layer for layer in child.values()):  # DenseNet dense block
+        for j, layer in child.items():
+            lp = f"{prefix}.denselayer{int(j) + 1}"
+            for name in ("norm1", "norm2"):
+                _bn(sd, f"{lp}.{name}", layer[name])
+            for name in ("conv1", "conv2"):
+                _conv(sd, f"{lp}.{name}", layer[name])
+    else:
+        _stage(sd, prefix, child)
 
 
 def params_from_jax(params: dict) -> dict[str, torch.Tensor]:
-    """JAX EfficientNet parameter tree (numpy leaves) -> port state dict.
+    """JAX backbone parameter tree (numpy leaves) -> port state dict.
 
     The tree is what the JAX package's ``Features.init`` or ``convert``
-    returns: ``{"0": stem CNA, "1".."n": stages, ...}``; MBConv blocks carry
-    ``dw``/``se``, fused blocks ``expand``/``project``.
+    returns for any of its backbones: ``{"0": child, "1": child, ...}``
+    (``convert.py`` maps the same layouts from torchvision's keys). A
+    DenseNet tree is told by its first child, a conv without a bias; its
+    children take torchvision's names (``conv0``, ``denseblock1``, ...).
     """
+    first = params.get("0", {})
+    dense = set(first) == {"weight"}
     sd: dict = {}
     for i, child in params.items():
-        prefix = f"features.{i}"
-        if "conv" in child:
-            _cna(sd, prefix, child)
-            continue
-        for j, blk in child.items():
-            bp = f"{prefix}.{j}.block"
-            idx = 0
-            if "expand" in blk:
-                _cna(sd, f"{bp}.{idx}", blk["expand"])
-                idx += 1
-            if "dw" in blk:
-                _cna(sd, f"{bp}.{idx}", blk["dw"])
-                for fc in ("fc1", "fc2"):
-                    sd[f"{bp}.{idx + 1}.{fc}.weight"] = blk["se"][fc]["weight"]
-                    sd[f"{bp}.{idx + 1}.{fc}.bias"] = blk["se"][fc]["bias"]
-                idx += 2
-            _cna(sd, f"{bp}.{idx}", blk["project"])
+        name = DENSENET_NAMES[int(i)] if dense else i
+        _child(sd, f"features.{name}", child)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}

@@ -25,7 +25,11 @@ retrieval/engine.py`` (reference run.py:17-34 + similarity.py:129-375):
   kernel (``ops/ncc_kernel.score_ncc``); max over variants floored at 0;
 * host ranks and the S-line (``metrics.py``), or with
   ``tpu.rank_on_device`` the scores left on the device and ranked there
-  (:class:`DeviceScores`, ``ops/topk.py``).
+  (:class:`DeviceScores`, ``ops/topk.py``);
+* with ``tpu.ncc_backend = "fft"``, the reference's FFT correlation instead
+  of the direct cache and kernel: one FFT cache per gallery block and each
+  probe's unfolded variant stack (``ops/ncc.py``,
+  :meth:`Pipeline._score_cluster_fft`).
 
 Not carried over (ROADMAP.md, 'Still to port'): the TPU sizing helpers,
 fusion, pruning, the mesh.
@@ -58,6 +62,7 @@ from ..models.registry import get_backbone
 from ..models.weights import build_model
 from ..ops.boxsum import EDGE_CROP
 from ..ops.clahe import clahe_batched_dynamic, lab_u8_to_rgb, rgb_to_lab_u8
+from ..ops.ncc import build_gallery_cache, score_templates
 from ..ops.ncc_direct import (
     PackedVariants,
     VariantLayout,
@@ -227,6 +232,33 @@ def rotate_maps(maps: torch.Tensor, rot_idx: torch.Tensor, rot_ok: torch.Tensor)
     return torch.where(rot_ok[:, :, None], rot, torch.zeros((), device=rot.device))
 
 
+def variant_maps(
+    maps: torch.Tensor,
+    rot_idx: torch.Tensor,
+    rot_ok: torch.Tensor,
+    wv: torch.Tensor,
+    wh: torch.Tensor,
+    *,
+    include_rots_unscaled: bool,
+    n_scl: int,
+) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """The raw variant maps of a probe batch, by class.
+
+    ``maps`` (pb, C, hc, wc) and the per-probe plan rows of
+    :class:`VariantPlan` on the same device -> (the unscaled class
+    (pb, b0, C, hc, wc), one (pb, 1+R, C, tc0, tc1) stack per scale).
+    Rotation is a gather, scaling two batched matrix products (vertical,
+    then horizontal).
+    """
+    rot = rotate_maps(maps, rot_idx, rot_ok)
+    base = rot if include_rots_unscaled else rot[:, :1]
+    scaled = []
+    for si in range(n_scl):
+        vert = torch.einsum("poh,prchw->prcow", wv[:, si], rot)
+        scaled.append(torch.einsum("pqw,prcow->prcoq", wh[:, si], vert))
+    return base, scaled
+
+
 def build_kernels(
     maps: torch.Tensor,
     valid: torch.Tensor,
@@ -240,26 +272,19 @@ def build_kernels(
     include_rots_unscaled: bool,
     n_scl: int,
 ) -> torch.Tensor:
-    """Class-major folded variant rows (N, C, hk, wk) for a probe batch.
-
-    ``maps`` (pb, C, hc, wc) and the per-probe plan rows of
-    :class:`VariantPlan` on the same device. Rotation is a gather, scaling
-    two batched matrix products (vertical, then horizontal), folding
-    :func:`fold_template`.
-    """
+    """Class-major folded variant rows (N, C, hk, wk) for a probe batch:
+    :func:`variant_maps`, each class folded by :func:`fold_template`."""
     pb, c, hc, wc = maps.shape
-    rot = rotate_maps(maps, rot_idx, rot_ok)
-    r1 = rot.shape[1]
-    base = rot if include_rots_unscaled else rot[:, :1]
+    base, scaled = variant_maps(maps, rot_idx, rot_ok, wv, wh,
+                                include_rots_unscaled=include_rots_unscaled, n_scl=n_scl)
     b0 = base.shape[1]
     kerns = [fold_template(
         base.reshape(pb * b0, c, hc, wc), valid.repeat_interleave(b0, dim=0), kernel_hw
     )]
-    for si in range(n_scl):
-        vert = torch.einsum("poh,prchw->prcow", wv[:, si], rot)
-        scaled = torch.einsum("pqw,prcow->prcoq", wh[:, si], vert)
+    for si, sc in enumerate(scaled):
+        r1 = sc.shape[1]
         kerns.append(fold_template(
-            scaled.reshape(pb * r1, c, *scaled.shape[-2:]),
+            sc.reshape(pb * r1, c, *sc.shape[-2:]),
             scale_hw[:, si].repeat_interleave(r1, dim=0), kernel_hw,
         ))
     return torch.cat(kerns)
@@ -297,11 +322,13 @@ class Pipeline:
     ``device`` is ``"cuda"`` (default) or ``"cpu"``. On CUDA the NCC scorer is
     the hand-written kernel unless ``tpu.ncc_backend = "direct"`` asks for its
     plain PyTorch version; on the CPU it is always the plain version.
+    ``"fft"`` scores through FFTs on either device.
 
     What each run took is counted on the object: ``stage_seconds`` and
     ``lookahead_seconds`` (below), ``ingest_tiers`` (the loader tier that
     served each file set), ``clahe_routes`` (``host`` or ``device``, once per
-    cluster whose features were extracted) and ``gallery_blocks_scored``.
+    cluster whose features were extracted), ``gallery_blocks_scored`` and
+    ``cache_bytes`` (each scored block's scoring cache, direct or FFT).
 
     Stage seconds are kept per thread. The calling thread's stages go into
     ``stage_seconds``; each ends with a device-wide synchronise, so a stage
@@ -333,13 +360,15 @@ class Pipeline:
         self.ingest_tiers: Counter = Counter()
         self.clahe_routes: Counter = Counter()
         self.gallery_blocks_scored = 0  # gallery blocks scored, over all clusters
+        self.cache_bytes: list[int] = []  # each scored gallery block's scoring cache
         self._mode_cache: dict[str, str] = {}
         self._la_pool: ThreadPoolExecutor | None = None
         self._lookahead = None  # (plan, future of its features)
         self._prewarm: threading.Thread | None = None
         self._prewarm_error: BaseException | None = None
         tpu = config["tpu"]
-        if tpu["prewarm"] and self.device.type == "cuda" and tpu["ncc_backend"] != "direct":
+        if (tpu["prewarm"] and self.device.type == "cuda"
+                and tpu["ncc_backend"] not in ("direct", "fft")):
             # the only thing the port compiles is its kernels, at first use
             # (ops/build.py): build the NCC kernel while ingest and
             # extraction run; the first scoring call joins this thread
@@ -635,8 +664,11 @@ class Pipeline:
         and un-permuted on return. Probes go in batches of ``probe_batch``,
         the tail batch repeating its last probe so every batch has the same
         shapes. With ``tpu.rank_on_device`` the scores stay on the device
-        and a :class:`DeviceScores` is returned.
+        and a :class:`DeviceScores` is returned. ``tpu.ncc_backend = "fft"``
+        goes to :meth:`_score_cluster_fft`.
         """
+        if self.config["tpu"]["ncc_backend"] == "fft":
+            return self._score_cluster_fft(q_maps, q_valid, g_maps, g_valid)
         dev = self.device
 
         def on_dev(a: np.ndarray) -> torch.Tensor:
@@ -730,12 +762,90 @@ class Pipeline:
                             out[lo : lo + n_take, b_lo:b_hi] = rows.cpu().numpy()
                         if self.verbose and b_hi == g_total:
                             print(f"  scored {lo + n_take}/{n_q} queries")
+                self.cache_bytes.append(sum(t.numel() * t.element_size() for t in cache))
                 del cache
                 self.gallery_blocks_scored += 1
         inv_order = np.argsort(order)
         if rank_dev:
             return DeviceScores(buf, inv_order)
         return out[:, inv_order]
+
+    def _score_cluster_fft(
+        self,
+        q_maps: torch.Tensor,
+        q_valid: np.ndarray,
+        g_maps: torch.Tensor | np.ndarray,
+        g_valid: np.ndarray,
+    ) -> np.ndarray:
+        """(Q, G) scores through the FFT backend (``ops/ncc.py``), one probe
+        at a time, as the JAX engine's ``_score_cluster_fft`` runs it
+        without a mesh.
+
+        Per probe, the unfolded variant stack (rotation gathers, scale
+        products, padded to the template canvas) is scored against one FFT
+        cache per gallery block: ``tpu.gallery_block`` prints, 0 = the whole
+        gallery in one block; a short tail block is padded with empty prints
+        to the block's shape. The gallery keeps its original order; the max
+        over variants is floored at 0. ``rank_on_device`` does not apply.
+        """
+        dev = self.device
+        q_maps = torch.as_tensor(q_maps).to(dev)
+        n_q, true_c, hc, wc = q_maps.shape
+        plan = self._variant_plan(q_valid, (hc, wc))
+        tc = plan.template_canvas
+        kernel_hw = (tc[0] - 2 * EDGE_CROP, tc[1] - 2 * EDGE_CROP)
+        include_rots_unscaled, _ = variant_classes(
+            self.config["tpu"]["variant_mode"], plan.n_rot, plan.n_scl
+        )
+        b0 = 1 + plan.n_rot if include_rots_unscaled else 1
+        q_valid = np.asarray(q_valid)
+        g_valid = np.asarray(g_valid)
+        g_maps = torch.as_tensor(g_maps)
+        g_total = len(g_valid)
+        gb = min(int(self.config["tpu"]["gallery_block"]) or g_total, g_total)
+        tables = [torch.as_tensor(a, device=dev) for a in (plan.rot_idx, plan.rot_ok,
+                                                             plan.wv, plan.wh)]
+        # each probe's variants' valid sizes, in the stack's order
+        t_valid = [np.concatenate([np.tile(q_valid[qi], (b0, 1))]
+                                  + [np.tile(plan.scale_hw[qi, si], (1 + plan.n_rot, 1))
+                                     for si in range(plan.n_scl)])
+                   for qi in range(n_q)]
+
+        def templates(qi: int) -> torch.Tensor:
+            base, scaled = variant_maps(
+                q_maps[qi : qi + 1], *[t[qi : qi + 1] for t in tables],
+                include_rots_unscaled=include_rots_unscaled, n_scl=plan.n_scl)
+            base = torch.nn.functional.pad(base[0], (0, tc[1] - wc, 0, tc[0] - hc))
+            return torch.cat([base] + [s[0] for s in scaled])
+
+        out = np.zeros((n_q, g_total), np.float32)
+        with torch.inference_mode():
+            for b_lo in range(0, g_total, gb):
+                b_hi = min(b_lo + gb, g_total)
+                with self._stage("cache"):
+                    blk = g_maps[b_lo:b_hi].to(dev, torch.float32)
+                    blk_valid = g_valid[b_lo:b_hi]
+                    if b_hi - b_lo < gb:
+                        pad = gb - (b_hi - b_lo)
+                        blk = torch.cat([blk, blk.new_zeros((pad, *blk.shape[1:]))])
+                        blk_valid = np.concatenate(
+                            [blk_valid, np.full((pad, 2), 2 * EDGE_CROP + 8, blk_valid.dtype)])
+                    cache, _ = build_gallery_cache(blk, torch.as_tensor(blk_valid, device=dev),
+                                                   kernel_hw)
+                    del blk
+                with self._stage("score"):
+                    rows = torch.empty((n_q, gb), dtype=torch.float32, device=dev)
+                    for qi in range(n_q):
+                        scores = score_templates(cache, templates(qi), t_valid[qi],
+                                                 true_channels=true_c)
+                        rows[qi] = torch.clamp(scores.amax(dim=0), min=0.0)
+                        if self.verbose and (qi + 1) % 10 == 0 and b_hi == g_total:
+                            print(f"  scored {qi + 1}/{n_q} queries")
+                    out[:, b_lo:b_hi] = rows[:, : b_hi - b_lo].cpu().numpy()
+                self.cache_bytes.append(cache.nbytes())
+                del cache
+                self.gallery_blocks_scored += 1
+        return out
 
     def _cluster_features(self, plan, next_plan=None):
         """Ingest + extract one cluster: (q_maps, q_valid, g_maps, g_valid,

@@ -127,7 +127,16 @@ def test_checkpoint_load_matches_jax_convert_and_replica(tmp_path):
 
 
 def test_other_backbones_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tget("VGG16")
+    """Every one of the reference's 13 model strings builds now (the name is
+    kept from when 12 of them were refused); an unknown one still raises
+    ``LookupError``."""
+    from shoeprint_image_retrieval_tpu.models.registry import REGISTRY as JREG
+
+    assert len(JREG) == 13
+    for name in JREG:
+        spec = tget(name)
+        assert (spec.weights_tag, spec.mean, spec.std) == (
+            jget(name).weights_tag, jget(name).mean, jget(name).std)
+        assert list(spec.build(2).out_channels) == list(jget(name).build().out_channels[:2])
     with pytest.raises(LookupError):
         tget("ResNet50")

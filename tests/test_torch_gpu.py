@@ -385,3 +385,68 @@ def test_blocked_engine_equals_unblocked(tmp_path):
             np.testing.assert_array_equal(o.ranks, p.ranks)
             scores = o.scores.materialize() if isinstance(o.scores, DeviceScores) else o.scores
             np.testing.assert_allclose(scores, p.scores, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("name,block", [("VGG16", 24), ("DenseNet_201", 8), ("EfficientNet_B7", 6)])
+def test_backbone_family_on_the_card_matches_cpu(name, block):
+    """One backbone of each family, seeded, on the card against the same
+    module and weights on the CPU: within 1e-4 of the activation scale,
+    equal valid sizes."""
+    _need_card()
+    from shoeprint_image_retrieval_torch.device import resolve_device
+    from shoeprint_image_retrieval_torch.models.registry import get_backbone
+    from shoeprint_image_retrieval_torch.models.weights import seeded_init
+
+    resolve_device("cuda")
+    features = get_backbone(name).build(block)
+    seeded_init(features, name)
+    features.eval()
+    rng = np.random.default_rng(0)
+    x = torch.zeros((2, 3, 160, 144))
+    x[0] = torch.from_numpy(rng.normal(size=(3, 160, 144)).astype(np.float32))
+    x[1, :, :121, :97] = torch.from_numpy(rng.normal(size=(3, 121, 97)).astype(np.float32))
+    valid = torch.tensor([[160, 144], [121, 97]], dtype=torch.int32)
+    with torch.inference_mode():
+        want, want_v = features(x, valid)
+        features.cuda()
+        got, got_v = features(x.cuda(), valid.cuda())
+    assert torch.equal(got_v.cpu(), want_v)
+    scale = float(want.abs().max())
+    assert 0 < scale and float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+def test_fft_scorer_on_the_card_matches_cpu_and_ranks_as_direct(tmp_path):
+    """``ops/ncc`` on the card against its CPU run, and the pipeline with
+    ``ncc_backend = "fft"`` on the card against the plain direct scorer."""
+    _need_card()
+    from shoeprint_image_retrieval_torch.config import load_config
+    from shoeprint_image_retrieval_torch.ops import ncc
+    from shoeprint_image_retrieval_torch.retrieval.engine import Pipeline
+
+    rng = np.random.default_rng(5)
+    prints = np.zeros((6, 20, 30, 26), np.float32)
+    p_valid = np.asarray([[30, 26], [22, 19], [30, 20], [14, 26], [25, 25], [9, 9]], np.int32)
+    for i, (h, w) in enumerate(p_valid):
+        prints[i, :, :h, :w] = rng.normal(size=(20, h, w))
+    templates = np.zeros((4, 20, 28, 24), np.float32)
+    t_valid = np.asarray([[28, 24], [12, 10], [12, 10], [20, 7]], np.int32)
+    for i, (h, w) in enumerate(t_valid):
+        templates[i, :, :h, :w] = rng.normal(size=(20, h, w))
+    scores = {}
+    for dev in ("cpu", "cuda"):
+        cache, _ = ncc.build_gallery_cache(torch.from_numpy(prints).to(dev),
+                                           torch.from_numpy(p_valid).to(dev), (24, 20))
+        scores[dev] = ncc.score_templates(cache, torch.from_numpy(templates).to(dev), t_valid,
+                                          true_channels=20).cpu()
+    assert torch.isfinite(scores["cuda"]).all()
+    assert float((scores["cuda"] - scores["cpu"]).abs().max()) <= 1e-5
+
+    cfg_path = _pipeline_config(tmp_path)
+    outs = {}
+    for backend in ("fft", "direct"):
+        cfg = load_config(cfg_path)
+        cfg["tpu"]["ncc_backend"] = backend
+        outs[backend] = list(Pipeline(cfg, weights_dir=None, verbose=False, device="cuda").run())
+    for f, d in zip(outs["fft"], outs["direct"]):
+        np.testing.assert_array_equal(f.ranks, d.ranks)
+        np.testing.assert_allclose(f.scores, d.scores, atol=TOL)

@@ -54,6 +54,15 @@ FRONT_END_MODULES = {
     "shoeprint_image_retrieval_torch.benchmarks.bench_extract",
 }
 
+# modules added with the other 12 backbones and the FFT backend
+BACKBONE_FFT_MODULES = {
+    "shoeprint_image_retrieval_torch.models.vgg",
+    "shoeprint_image_retrieval_torch.models.densenet",
+    "shoeprint_image_retrieval_torch.models.summary",
+    "shoeprint_image_retrieval_torch.ops.fft",
+    "shoeprint_image_retrieval_torch.ops.ncc",
+}
+
 
 def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", BLOCKED_IMPORTS], cwd=REPO,
@@ -63,6 +72,7 @@ def test_port_imports_with_jax_blocked():
     assert len(names) >= 25  # every module of the port was imported
     assert MEASUREMENT_MODULES <= names
     assert FRONT_END_MODULES <= names
+    assert BACKBONE_FFT_MODULES <= names
 
 
 def test_no_source_names_jax_or_the_jax_package():

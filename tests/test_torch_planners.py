@@ -79,14 +79,13 @@ def test_config_loads_like_jax(tmp_path):
     cfg = tload("run.toml")
     check_supported(cfg)
     for key, value in [("mesh_shape", 2), ("fusion_blocks", [6, 4]), ("pruned_scoring", True),
-                       ("precision", "bfloat16"), ("cache_dtype", "bfloat16"),
-                       ("ncc_backend", "fft")]:
+                       ("precision", "bfloat16"), ("cache_dtype", "bfloat16")]:
         bad = tload("run.toml")
         bad["tpu"][key] = value
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             check_supported(bad)
     for key, value in [("clahe_host", False), ("pipeline_clusters", False), ("prewarm", False),
-                       ("profile_dir", "traces")]:  # honoured now
+                       ("profile_dir", "traces"), ("ncc_backend", "fft")]:  # honoured now
         ok = tload("run.toml")
         ok["tpu"][key] = value
         check_supported(ok)
