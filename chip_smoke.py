@@ -55,7 +55,15 @@ Phases, each printing one JSON line:
    within 1e-4, the NCC kernel launched for each model. Reports stage
    seconds, peak device memory, score seconds a cluster and, per kernel
    call (CUDA events around the engine's ``score_ncc``), its C, rows,
-   prints, ms and its bound by ``kernel``'s formula.
+   prints, ms, its bound by ``kernel``'s formula and one ``F.conv2d`` of
+   its operands (``library_ms``, timed after the run).
+   Then ``fusion``: the fixture with ``fusion_blocks = [6, 4]``, plain then
+   kernel (launch counts reset just before the kernel run, read just after):
+   ranks and S-lines identical, the kernel launched at both blocks' C, the
+   ranks equal to those of the sum of each block's ``_cluster_scores``;
+   ``benchmarks/bench_fusion`` (G = 300, blocks 6 and 4; Q cut from 56 to
+   ``FUSION_PROBES``) and its block-4 call timed beside its bound and one
+   ``F.conv2d``.
 6. ``front_end``: on the fixture's ingested images, the device CLAHE on the
    card against the native host CLAHE, gray (``clahe_batched_dynamic``)
    and RGB (the engine's LAB route, on colour images made from the gray
@@ -101,10 +109,29 @@ Phases, each printing one JSON line:
    C = 176, PB = 128, in blocks of 2048 prints (five), with its checks
    (device ranks = host ranks, an oracle subsample within 5e-4, every
    planted match at rank 1).
+14. ``sizing``: the NCC kernel alone over PB = 28, 56, 64, 112, 224, 320 at
+   the bench's shapes (``benchmarks/kernel_probe``: ms, executed and needed
+   FLOP, TFLOP/s, bound share) and at PB = 56 in each of its two patch
+   layouts (split, float, float, split), the per-batch variant build
+   (``bench_build``), the per-block cache build at G = 300 and 2048
+   (``bench_cachebuild``), the engine on host-resident maps, and the probe
+   batch and gallery block ``probe_batch = 0`` gives at G = 300 and 10,240
+   (with the block before the equal split).
+15. ``pruned``: ``benchmarks/bench_pruned`` on its planted and random
+   workloads (G = 1024, Q = 56, k = 22) through the kernel (launch counts
+   reset just before each pruned path and read just after it, inside the
+   bench; the full path's counted apart): ranks equal to the full path's;
+   prune rate, pairs scored, both probes/s and the max |Δ| between pass 0's
+   true-match scores and the full path's. On ``planted``, every call of
+   the pruned path (passes 0, 1 and 2) is held against the plain scorer on
+   the same inputs (within 1e-4) and the plain pruned ranks must equal the
+   kernel's. Then pass 1's C = 22 call against the plain scorer (within
+   1e-4), timed beside its bound and one ``F.conv2d``.
 
 Every phase reports its seconds (``wall_s``). Then a ``{"kernels": [...]}``
-line, the card's name and power limit as ``nvidia-smi`` prints them, and as
-the last line
+line (the NCC kernel's entry also gives its launches in ``fusion``'s kernel
+run and in ``pruned``'s two pruned paths), the card's name and power limit
+as ``nvidia-smi`` prints them, and as the last line
 ``{"ok": true, "device": {...}}``. Any fault exits non-zero before that line;
 without a CUDA device it exits 2 and prints no result.
 """
@@ -113,6 +140,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import re
 import subprocess
@@ -122,16 +150,6 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-# Published H100 SXM peaks (NVIDIA data sheet): FP32 on the CUDA cores and
-# device-memory bandwidth; bound_ms uses them.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# 3xTF32 spends three TF32 tensor-core products (495 TFLOP/s dense) on one
-# f32 product: the NCC kernel's route peak
-PEAK_3XTF32_FLOPS = 495e12 / 3
-# the probe's bound: the published dense peak of the route each leg takes
-# (3xTF32 spends three TF32 products on one f32 product)
-PROBE_PEAK_FLOPS = {"f32": PEAK_FP32_FLOPS, "f32_3xtf32": PEAK_3XTF32_FLOPS, "bf16": 989e12}
 # probe kernel vs plain, relative to max |plain|: f32 and bf16 sums in another
 # order (bf16 inputs are exact in f32, and so are their products); 3xTF32
 # also drops the lo*lo term (~2^-22 relative)
@@ -169,6 +187,14 @@ FAMILIES = (
 
 ROTATIONS = [-15, -9, -3, 3, 9, 15, 180]
 SCALES = [1.02, 1.04, 1.08]
+# fusion: the fixture's two planned blocks, each scored for every cluster;
+# bench_fusion cut to this many probes (its block 4, a 73 x 73 kernel canvas
+# over 88 x 88 prints at C = 80, takes ~9x block 6's FLOP a probe)
+FUSION_BLOCKS = (6, 4)
+FUSION_PROBES = 8
+# sizing: the cluster size the auto probe batch is solved for (more probes
+# than the card's row cap holds, so the cap and not the cluster decides)
+AUTO_PROBES = 1024
 
 
 def emit(obj: dict) -> None:
@@ -177,7 +203,7 @@ def emit(obj: dict) -> None:
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean time of ``fn`` on the card over ``reps`` runs after one warm-up,
-    from CUDA events."""
+    from CUDA events (``utils.tracing.device_ms``)."""
     import torch
 
     from shoeprint_image_retrieval_torch.utils.tracing import device_ms
@@ -304,33 +330,6 @@ def edge_cases(device: str = "cuda") -> float:
     return err
 
 
-def window_taps(extent: int, canvas: int):
-    """(extent + 1, canvas + 1) table: for a window of size ``k`` centred as
-    the box sums centre it (``[y - k//2, y + (k-1)//2]``) and a print of
-    valid size ``v``, the taps that land inside the print, summed over the
-    print's valid output positions ``y < v``."""
-    import numpy as np
-
-    k = np.arange(extent + 1)[:, None, None]
-    v = np.arange(canvas + 1)[None, :, None]
-    y = np.arange(canvas)[None, None, :]
-    lo = np.maximum(y - k // 2, 0)
-    hi = np.minimum(y + (k - 1) // 2, v - 1)
-    return np.where(y < v, np.maximum(hi - lo + 1, 0), 0).sum(axis=-1).astype(np.float64)
-
-
-def needed_flop(row_hw, gvalid, c: int, canvas_hw: tuple[int, int]) -> float:
-    """Multiply-adds the correlation needs on these inputs, as FLOP: for each
-    (row, print, channel), the row's window taps that overlap the print's
-    valid region, over the print's valid output positions. Taps that fall on
-    the zero padding around a print are not counted."""
-    hmax, wmax = int(row_hw[:, 0].max()), int(row_hw[:, 1].max())
-    th, tw = window_taps(hmax, canvas_hw[0]), window_taps(wmax, canvas_hw[1])
-    fh = th[row_hw[:, 0][:, None], gvalid[:, 0][None, :]]  # (N, G)
-    fw = tw[row_hw[:, 1][:, None], gvalid[:, 1][None, :]]
-    return 2.0 * c * float((fh * fw).sum())
-
-
 def float64_errors(cache, packed, layout, c, uniq, inv, got) -> dict:
     """Max |score - float64 score| over the first PRECISION_PRINTS prints
     for the kernel's ``got``, the plain version in FP32 and the plain
@@ -364,8 +363,9 @@ def float64_errors(cache, packed, layout, c, uniq, inv, got) -> dict:
 def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: int = 300,
                  c: int = 176) -> dict:
     import numpy as np
-    import torch.nn.functional as F
+    import torch
 
+    from shoeprint_image_retrieval_torch.benchmarks import kernel_probe
     from shoeprint_image_retrieval_torch.ops import ncc_kernel
     from shoeprint_image_retrieval_torch.ops.ncc_direct import row_slots, score_direct
 
@@ -397,10 +397,8 @@ def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: in
     # yardstick: one cuDNN convolution (TF32 off) computing the channel-summed
     # raw correlation on the same operands; the port never calls it
     hk, wk = packed.kernels.shape[-2:]
-    lib_in = F.pad(cache.p0.transpose(0, 1), (wk // 2, wk - 1 - wk // 2, hk // 2, hk - 1 - hk // 2))
-    lib_w = packed.kernels.contiguous()
-    library_ms = cuda_ms(lambda: F.conv2d(lib_in, lib_w), reps)
-    del lib_in
+    library_ms = kernel_probe.library_ms({"cache": cache, "packed": packed, "channels": c,
+                                          "kernel_hw": (int(hk), int(wk))}, torch.device(device))
 
     # the least time the card could take: the correlation's needed
     # multiply-adds at the route's peak (3xTF32; FP32 on the CUDA cores
@@ -409,7 +407,7 @@ def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: in
     slots, row_slot = row_slots(packed, layout, uniq, inv)
     row_hw = slots[row_slot].cpu().numpy()
     gvalid = cache.valid_hw.cpu().numpy()
-    flops = needed_flop(row_hw, gvalid, c, tuple(cache.p0.shape[2:]))
+    flops = ncc_kernel.needed_flop(row_hw, gvalid, c, tuple(cache.p0.shape[2:]))
     tile = ncc_kernel.kernel_tile()
     rows = ncc_kernel.row_plan(row_hw, (int(hk), int(wk)), tile.rows)
     prints = ncc_kernel.print_plan(gvalid, tile.positions)
@@ -418,8 +416,7 @@ def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: in
     inputs = (cache.p0, cache.int1, cache.int2, cache.valid_hw, packed.kernels, uniq, inv)
     in_bytes = sum(t.numel() * t.element_size() for t in inputs)
     out_bytes = got.numel() * got.element_size()
-    t_ops = flops / PEAK_3XTF32_FLOPS * 1e3
-    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    bound = kernel_probe.bound(flops, in_bytes + out_bytes)
     n, g = got.shape
     return {
         "phase": "kernel", "probes": pb, "rows": n, "prints": g, "channels": c,
@@ -428,11 +425,11 @@ def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: in
         "tiles": len(rows.taps), "position_blocks_per_print": prints.n_chunks,
         "max_abs_err": err, "edge_case_max_abs_err": edge_err, "err_vs_float64": err64,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "bound_fp32_ms": max(flops / PEAK_FP32_FLOPS * 1e3, t_bytes),
+        **bound,
+        "bound_fp32_ms": kernel_probe.bound(flops, in_bytes + out_bytes, "f32")["bound_ms"],
         "needed_flop": flops, "executed_flop": executed, "bytes": in_bytes + out_bytes,
         "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12,
-        "bound_share": max(t_ops, t_bytes) / kernel_ms,
+        "bound_share": bound["bound_ms"] / kernel_ms,
         "comparison_launches": ncc_kernel.launch_ncc.launches - launches0,
         "wall_s": time.perf_counter() - t0,
     }
@@ -469,7 +466,8 @@ def run_pipeline(config: dict, backend: str, device: str = "cuda", **tpu):
             raise AssertionError(f"{backend} {tpu}: ranks out of range")
         lines.append(s_line({p: cmp(out.ranks.tolist(), p, n_g, n_q) * 100
                              for p in (1, 5, 10, 15, 20)}))
-    if pipe.gallery_blocks_scored != len(outs):
+    # one gallery block a cluster, or one a fusion block
+    if pipe.gallery_blocks_scored != len(outs) * max(1, len(cfg["tpu"]["fusion_blocks"])):
         raise AssertionError(f"{backend} {tpu}: {pipe.gallery_blocks_scored} gallery blocks "
                              f"for {len(outs)} clusters")
     return outs, lines, {
@@ -662,15 +660,19 @@ def phase_fft(dataset: Path, plain: tuple, kernel_score_s: list[float],
 
 
 @contextlib.contextmanager
-def timed_launches():
+def timed_launches(library: bool = False):
     """Time every NCC kernel call the engine makes inside the block: CUDA
     events around the engine's ``score_ncc`` (which, with the engine's tile
     plan, only launches the kernel; the kernel's launch count is untouched).
     Yields a list that holds, after the block, one record a call: C, rows,
-    prints, canvas, ms and the bound by ``phase_kernel``'s formula."""
+    prints, canvas, ms and the bound by ``phase_kernel``'s formula; with
+    ``library``, also one ``F.conv2d`` of each call's operands, timed after
+    the block (the operands are kept until then)."""
     import numpy as np
     import torch
 
+    from shoeprint_image_retrieval_torch.benchmarks.kernel_probe import bound, library_ms
+    from shoeprint_image_retrieval_torch.ops.ncc_kernel import needed_flop
     from shoeprint_image_retrieval_torch.retrieval import engine
 
     real = engine.score_ncc
@@ -683,8 +685,10 @@ def timed_launches():
         end.record()
         moved = sum(t.numel() * t.element_size() for t in (*cache, packed.kernels,
                                                             plan[0].table, out))
+        operands = ({"cache": cache, "packed": packed, "channels": packed.kernels.shape[1],
+                     "kernel_hw": tuple(packed.kernels.shape[2:])} if library else None)
         pending.append((start, end, tuple(packed.kernels.shape), tuple(cache.p0.shape),
-                        cache.valid_hw.clone(), plan[0], moved))
+                        cache.valid_hw.clone(), plan[0], moved, operands))
         return out
 
     engine.score_ncc = timed
@@ -693,17 +697,17 @@ def timed_launches():
     finally:
         engine.score_ncc = real
         torch.cuda.synchronize()
-        for start, end, (n, c, hk, wk), (_, g, hb, wb), gvalid, rows, moved in pending:
+        for start, end, (n, c, hk, wk), (_, g, hb, wb), gvalid, rows, moved, operands in pending:
             row_hw = rows.windows[np.arange(n) // rows.m_tile, rows.slots]
             flops = needed_flop(row_hw, gvalid.cpu().numpy(), c, (hb, wb))
-            t_ops = flops / PEAK_3XTF32_FLOPS * 1e3
-            t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+            least = bound(flops, moved)
             ms = start.elapsed_time(end)
             records.append({"channels": c, "rows": n, "prints": g, "canvas": [hb, wb],
-                            "kernel_hw": [hk, wk], "ms": ms, "bound_ms": max(t_ops, t_bytes),
-                            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                            "kernel_hw": [hk, wk], "ms": ms, **least,
                             "needed_flop": flops, "bytes": moved,
-                            "bound_share": max(t_ops, t_bytes) / ms})
+                            "bound_share": least["bound_ms"] / ms,
+                            "library_ms": None if operands is None else library_ms(
+                                operands, torch.device("cuda"))})
 
 
 def phase_families(dataset: Path, device: str = "cuda", families=FAMILIES) -> dict:
@@ -721,7 +725,7 @@ def phase_families(dataset: Path, device: str = "cuda", families=FAMILIES) -> di
         cfg["model"].update(type=model, start_block=start, end_block=end, skip_blocks=skip)
         plain = run_pipeline(cfg, "direct", device)
         launch.launches = 0
-        with timed_launches() as calls:
+        with timed_launches(library=True) as calls:
             kernel = run_pipeline(cfg, "auto", device)
         launches = launch.launches
         if launches < 1:
@@ -737,6 +741,149 @@ def phase_families(dataset: Path, device: str = "cuda", families=FAMILIES) -> di
         }
     out["wall_s"] = time.perf_counter() - t0
     return out
+
+
+def phase_sizing(device: str = "cuda") -> dict:
+    """What one scoring call is made of on the card: the NCC kernel alone
+    over a sweep of probe batches and in each patch layout
+    (``benchmarks/kernel_probe``), the
+    per-batch variant build (``bench_build``), the per-block cache build
+    (``bench_cachebuild``), the engine on maps left on the host
+    (``bench.run(host_maps=True)``), and the sizing the engine picks for
+    ``probe_batch = 0`` at G = 300 and at G = 10,240 with the equal-block
+    split there."""
+    import torch
+
+    from shoeprint_image_retrieval_torch import bench
+    from shoeprint_image_retrieval_torch.benchmarks import bench_build, bench_cachebuild, kernel_probe
+    from shoeprint_image_retrieval_torch.device import free_bytes
+    from shoeprint_image_retrieval_torch.ops import ncc_kernel
+    from shoeprint_image_retrieval_torch.retrieval.engine import variant_classes, variant_plan
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    out = {"phase": "sizing", "kernel_probe": kernel_probe.run(device=device),
+           "bench_build": bench_build.run(device=device),
+           "bench_cachebuild": bench_cachebuild.run(device=device),
+           "engine_host_maps": bench.run(device=device, q=PROBES, kernel=False, host_maps=True)}
+    # probe_batch = 0 on this card, for a cluster of AUTO_PROBES probes
+    w = bench.make_workload(q=1)
+    c, hraw, hc = w["gal"].shape[1], w["gal"].shape[-1], w["canvas"]
+    plan = variant_plan(w["q_sizes"], (hc, hc), bench.ROTATIONS, bench.SCALES)
+    n_var = sum(variant_classes("reference", plan.n_rot, plan.n_scl)[1])
+    tile = ncc_kernel.kernel_tile()
+    auto = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sizing_") as tmp:
+        pipe = bench.engine_pipeline(Path(tmp), 0, dev)
+        for g in (300, G_10K):
+            pb, gb = pipe._probe_batch_and_block(AUTO_PROBES, g, c, (hc, hc), (hraw, hraw), plan,
+                                                 n_var, tile.rows)
+            kernel_hw = (plan.template_canvas[0] - 4, plan.template_canvas[1] - 4)
+            per_print = ncc_kernel.gallery_block_bytes_per_print(c, hraw, hraw, pb * n_var)
+            stack = pb * n_var * c * kernel_hw[0] * kernel_hw[1] * 4
+            unbalanced = ncc_kernel.auto_gallery_block(g, per_print, free_bytes(dev), stack, 1)
+            auto[str(g)] = {"probes": AUTO_PROBES, "probe_batch": pb, "rows": pb * n_var,
+                            "block": gb, "blocks": -(-g // gb),
+                            "auto_block_before_split": unbalanced,
+                            "tail_before_split": g - (-(-g // unbalanced) - 1) * unbalanced}
+        pipe.close()
+    out["auto"] = auto
+    out["h100_probe_rows"] = ncc_kernel.H100_PROBE_ROWS
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_fusion(dataset: Path, device: str = "cuda") -> tuple[dict, int]:
+    """The fixture with ``fusion_blocks = [6, 4]``, plain then kernel: ranks
+    and S-lines identical, the kernel launched at both blocks' channels, the
+    fused ranks equal to the ranks of the sum of the per-block
+    ``_cluster_scores``; then ``benchmarks/bench_fusion`` and one block-4
+    call at its shapes beside its bound and one ``F.conv2d``."""
+    import numpy as np
+
+    from shoeprint_image_retrieval_torch.benchmarks import bench_fusion
+    from shoeprint_image_retrieval_torch.metrics import ranks_from_scores
+    from shoeprint_image_retrieval_torch.ops import ncc_kernel
+    from shoeprint_image_retrieval_torch.retrieval.engine import Pipeline
+
+    t0 = time.perf_counter()
+    cfg = fixture_config(dataset)
+    cfg["tpu"]["fusion_blocks"] = list(FUSION_BLOCKS)
+    plain = run_pipeline(cfg, "direct", device)
+    ncc_kernel.launch_ncc.launches = 0
+    with timed_launches() as calls:
+        kernel = run_pipeline(cfg, "auto", device)
+    launches = ncc_kernel.launch_ncc.launches
+    err = held_runs("fusion kernel vs plain", kernel, plain, TOL)
+    channels = sorted({r["channels"] for r in calls})
+    if launches < 1 or len(channels) != len(FUSION_BLOCKS):
+        raise AssertionError(f"fusion: {launches} kernel launches at channels {channels}")
+    # the fused ranks are the ranks of the sum of each block's matrix
+    control_cfg = copy.deepcopy(cfg)
+    control_cfg["tpu"].update(fusion_blocks=[], ncc_backend="auto")
+    control = Pipeline(control_cfg, weights_dir=None, verbose=False, device=device)
+    for out, plan in zip(kernel[0], control.plans):
+        mats = [control._cluster_scores(dataclasses.replace(plan, block=fb))
+                for fb in FUSION_BLOCKS]
+        want = ranks_from_scores(sum(m[0] for m in mats),
+                                 control.dataset.matching_pairs(mats[0][1]))
+        if not np.array_equal(out.ranks, want):
+            raise AssertionError(f"fusion: ranks {out.ranks} vs the summed blocks' {want}")
+    control.close()
+    with timed_launches(library=True) as bench_calls:
+        bench = bench_fusion.run(q=FUSION_PROBES, device=device)
+    c4 = bench_fusion.BLOCKS[1][1]
+    block4 = [r for r in bench_calls if r["channels"] == c4 and r["prints"] == bench_fusion.G]
+    if not block4:
+        raise AssertionError(f"fusion: no block-4 call in bench_fusion's {bench_calls}")
+    return {"phase": "fusion", "fusion_blocks": list(FUSION_BLOCKS),
+            "clusters": [{"queries": o.n_queries, "block": o.block, "scale": o.scale,
+                          "ranks": o.ranks.tolist()} for o in plain[0]],
+            "s_lines": plain[1], "kernel_launches": launches, "kernel_channels": channels,
+            "scores_max_abs_diff": err, "plain": plain[2], "kernel": kernel[2],
+            "ncc_calls": calls, "bench_fusion": bench, "block4_calls": block4,
+            "wall_s": time.perf_counter() - t0}, launches
+
+
+def phase_pruned(device: str = "cuda") -> tuple[dict, int]:
+    """``benchmarks/bench_pruned`` on both workloads through the kernel:
+    ranks equal to the full path's, the spread of pass 0's true-match scores
+    against the full path's, the kernel's launches in the pruned path alone
+    (the count reset just before it and read just after, inside the bench)
+    and in the full path. On ``planted`` each call of the pruned path is
+    also made by the plain scorer on the same inputs (within ``TOL``, the
+    plain path's ranks equal to the kernel's). Then pass 1's C = 22 call at
+    the bench's shapes against the plain scorer (within ``TOL``), beside its
+    bound and one ``F.conv2d``. -> (result, launches in the pruned paths)"""
+    import torch
+
+    from shoeprint_image_retrieval_torch.benchmarks import bench_pruned, kernel_probe
+    from shoeprint_image_retrieval_torch.retrieval.pruned import channel_order
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    workloads = bench_pruned.make_workloads()
+    runs = {kind: bench_pruned.run(w, device=device, plain_check=kind == "planted")
+            for kind, w in workloads.items()}
+    launches = sum(r["launches_pruned"] for r in runs.values())
+    if min(r["launches_pruned"] for r in runs.values()) < 1:
+        raise AssertionError(f"pruned: the kernel was not launched in a pruned path: {runs}")
+    check = runs["planted"]["plain_check"]
+    if check["max_abs_diff"] > TOL:
+        raise AssertionError(f"pruned: kernel vs plain max abs err {check['max_abs_diff']} "
+                             f"> {TOL}: {check['calls']}")
+    w = workloads["random"]
+    ck = channel_order(w["gal"])[: runs["random"]["k"]]
+    pb = bench_pruned.PB
+    pass1 = kernel_probe.probe_call(
+        kernel_probe.stack_inputs(w["gal"][:, ck], w["g_sizes"], w["qmaps"][:pb, ck],
+                                  w["q_sizes"][:pb], dev), dev, library=True, warm=False,
+        plain=True)
+    if pass1["max_abs_err"] > TOL:
+        raise AssertionError(f"pruned: pass 1's call, kernel vs plain max abs err "
+                             f"{pass1['max_abs_err']} > {TOL}")
+    return {"phase": "pruned", "runs": runs, "kernel_launches": launches, "pass1_call": pass1,
+            "wall_s": time.perf_counter() - t0}, launches
 
 
 def phase_backbones(device: str = "cuda", names=None, canvas=BACKBONE_CANVAS,
@@ -932,7 +1079,7 @@ def phase_mxu_probe(device: str = "cuda") -> tuple[dict, int]:
     version and timed beside it."""
     import torch
 
-    from shoeprint_image_retrieval_torch.benchmarks import mxu_probe
+    from shoeprint_image_retrieval_torch.benchmarks import kernel_probe, mxu_probe
     from shoeprint_image_retrieval_torch.ops import mma_probe as mp
 
     t0 = time.perf_counter()
@@ -962,16 +1109,13 @@ def phase_mxu_probe(device: str = "cuda") -> tuple[dict, int]:
         del stack
         flop = mp.probe_flop(n, k, lanes, y_iters, grid)
         moved = a.numel() * a.element_size() + b.numel() * b.element_size() + got.numel() * 4
-        t_ops = flop / PROBE_PEAK_FLOPS[prec] * 1e3
-        t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+        least = kernel_probe.bound(flop, moved, prec)
         # what the kernel's TMA loads stream from L2 (a model of its tiles),
         # and the rate that implies at the measured time
         l2 = mp.l2_bytes(n, k, lanes, y_iters, grid, prec)
         legs.append({**r, "max_abs_err": abs_err, "max_rel_err": rel_err, "plain_ms": plain_ms,
-                     "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                     "flop": flop, "bytes": moved,
-                     "bound_share": max(t_ops, t_bytes) / r["ms"],
+                     "library_ms": library_ms, **least, "flop": flop, "bytes": moved,
+                     "bound_share": least["bound_ms"] / r["ms"],
                      "l2_bytes": l2, "l2_tb_per_s": l2 / (r["ms"] * 1e-3) / 1e12,
                      **mp.launch_plan(n, k, lanes, y_iters, grid, prec)})
         del got, want
@@ -1095,6 +1239,8 @@ def main() -> int:
                           if r["backend"] == "auto"]
         emit(phase_fft(dataset, plain, kernel_score_s))
         emit(phase_families(dataset))
+        fusion, fusion_launches = phase_fusion(dataset)
+        emit(fusion)
         emit(phase_front_end(dataset))
         emit(phase_extract())
         emit(phase_parity(Path(tmp)))
@@ -1104,6 +1250,9 @@ def main() -> int:
     emit(phase_bench())
     emit(phase_gallery_blocks())
     emit(phase_bench_10k())
+    emit(phase_sizing())
+    pruned, pruned_launches = phase_pruned()
+    emit(pruned)
     primary = probe["legs"][0]  # the JAX default shape, f32: probe_pallas's first leg
     emit({"kernels": [{
         "name": "ncc_score",
@@ -1117,6 +1266,8 @@ def main() -> int:
         "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],
+        "launches_fusion": fusion_launches,
+        "launches_pruned": pruned_launches,
     }, {
         "name": "mma_probe",
         "route": "cuda",

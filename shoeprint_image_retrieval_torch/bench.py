@@ -10,20 +10,23 @@ the same metric names:
   probe), PB = 56 probes (1400 variant rows) per scoring call.
 * **Engine mode** (the headline, ``probes_per_sec_engine_path``): a temporary
   ``run.toml`` and ``Pipeline._score_cluster`` on device-resident maps, one
-  warm-up call and one timed call.
+  warm-up call and one timed call; with ``host_maps`` (``--host-maps``, the
+  JAX bench's ``BENCH_ENGINE_HOST``) on maps left on the host, which the
+  engine moves to the card within the call.
 * **Kernel-level mode** (``kernel``): the gallery cache built once, then per
   probe batch ``build_kernels`` + ``score_ncc`` + ``regroup_max``, one
   warm-up pass and one timed pass.
 
-    python -m shoeprint_image_retrieval_torch.bench [--quick] [--engine | --kernel] [--device cuda|cpu]
+    python -m shoeprint_image_retrieval_torch.bench [--quick] [--engine | --kernel] [--host-maps]
+        [--device cuda|cpu]
 
 Prints one JSON line on stdout (progress goes to stderr): ``metric``,
 ``value``, ``unit``, ``vs_baseline`` (value / 100 probes/s, BASELINE.json's
 north-star target), ``engine`` and ``kernel`` in probes/s, and the device.
 Runs on the card unless ``--device cpu``; ``--quick`` shrinks the workload
 (G = 24, C = 16, Q = 4, PB = 2) for the CPU. The JAX bench's TPU-only or
-unported switches (``BENCH_EPI``, ``BENCH_BF16``, ``SIR_FORCE_SHARDED``,
-``BENCH_ENGINE_HOST``) are not carried over.
+unported switches (``BENCH_EPI``, ``BENCH_BF16``, ``SIR_FORCE_SHARDED``)
+are not carried over.
 """
 
 from __future__ import annotations
@@ -127,13 +130,17 @@ def engine_pipeline(root: Path, pb: int, device: torch.device):
     return Pipeline(load_config(cfg), weights_dir=None, verbose=False, device=device)
 
 
-def run_engine_mode(w: dict, qmaps: np.ndarray, device: torch.device) -> float:
-    """Probes/s of ``Pipeline._score_cluster`` on device-resident maps."""
+def run_engine_mode(w: dict, qmaps: np.ndarray, device: torch.device,
+                    host_maps: bool = False) -> float:
+    """Probes/s of ``Pipeline._score_cluster`` on device-resident maps, or
+    with ``host_maps`` on maps in host memory."""
     with tempfile.TemporaryDirectory(prefix="bench_engine_") as tmp:
         pipe = engine_pipeline(Path(tmp), w["pb"], device)
-        q_in = torch.from_numpy(qmaps).to(device)
-        g_in = torch.from_numpy(w["gal"]).to(device)
-        log(f"engine mode: Pipeline._score_cluster, PB={w['pb']}, {device.type}")
+        where = torch.device("cpu") if host_maps else device
+        q_in = torch.from_numpy(qmaps).to(where)
+        g_in = torch.from_numpy(w["gal"]).to(where)
+        log(f"engine mode: Pipeline._score_cluster, PB={w['pb']}, {device.type}, "
+            f"maps on {where.type}")
         t0 = time.perf_counter()
         pipe._score_cluster(q_in, w["q_sizes"], g_in, w["g_sizes"])
         log(f"warm-up: {time.perf_counter() - t0:.2f}s")
@@ -210,8 +217,10 @@ def run_kernel_mode(w: dict, qmaps: np.ndarray, device: torch.device) -> float:
 
 
 def run(quick: bool = False, engine: bool = True, kernel: bool = True,
-        device: str | torch.device = "cuda", q: int | None = None) -> dict:
-    """Both modes (or one) -> the JSON result; ``q`` overrides the probe count."""
+        device: str | torch.device = "cuda", q: int | None = None,
+        host_maps: bool = False) -> dict:
+    """Both modes (or one) -> the JSON result; ``q`` overrides the probe
+    count, ``host_maps`` leaves the engine mode's maps on the host."""
     if not (engine or kernel):
         raise ValueError("bench: nothing to run (engine and kernel both off)")
     dev = resolve_device(device)
@@ -220,7 +229,7 @@ def run(quick: bool = False, engine: bool = True, kernel: bool = True,
     w = make_workload(quick, q)
     engine_pps = kernel_pps = None
     if engine:
-        engine_pps = run_engine_mode(w, draw_probe_maps(w), dev)
+        engine_pps = run_engine_mode(w, draw_probe_maps(w), dev, host_maps)
     if kernel:
         kernel_pps = run_kernel_mode(w, draw_probe_maps(w), dev)
     metric = "probes_per_sec_engine_path" if engine else "probes_per_sec_full_gallery_ncc"
@@ -230,6 +239,8 @@ def run(quick: bool = False, engine: bool = True, kernel: bool = True,
     if engine and kernel:
         result.update(engine=round(engine_pps, 3), kernel=round(kernel_pps, 3))
     result["device"] = name
+    if engine:
+        result["maps"] = "host" if host_maps else "device"
     return result
 
 
@@ -239,9 +250,12 @@ def main(argv: list[str] | None = None) -> dict:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--engine", action="store_true", help="engine path only")
     mode.add_argument("--kernel", action="store_true", help="kernel-level composition only")
+    ap.add_argument("--host-maps", action="store_true",
+                    help="engine mode on maps in host memory (BENCH_ENGINE_HOST)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    result = run(args.quick, engine=not args.kernel, kernel=not args.engine, device=args.device)
+    result = run(args.quick, engine=not args.kernel, kernel=not args.engine, device=args.device,
+                 host_maps=args.host_maps)
     print(json.dumps(result), flush=True)
     return result
 

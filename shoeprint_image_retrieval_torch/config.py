@@ -21,12 +21,19 @@ Same parse as ``shoeprint_image_retrieval_tpu/config.py``: plain TOML, the
   ``pipeline_clusters`` (the next cluster's ingest and extraction on a
   lookahead thread while this one scores), ``prewarm`` (on a card, the NCC
   kernel builds on a thread from the moment the pipeline is made; nothing
-  on the CPU or for ``fft``) and ``profile_dir`` (one ``torch.profiler``
-  Chrome trace per cluster there; empty = none);
+  on the CPU or for ``fft``), ``profile_dir`` (one ``torch.profiler``
+  Chrome trace per cluster there; empty = none), ``fusion_blocks`` (each
+  cluster scored once per listed truncation block at its planned scale,
+  the score matrices summed before ranking) and ``pruned_scoring`` with
+  ``prune_channels`` and ``prune_margin`` (exact true-match ranks from a
+  channel-prefix bound, ``retrieval/pruned.py``; no score matrix);
+  ``probe_batch = 0`` means 56 on the CPU and on a card the rows the card
+  can take (``ops/ncc_kernel.auto_probe_rows``);
 * read and ignored: ``mesh_shape`` <= 1;
 * refused with ``NotImplementedError`` naming the ROADMAP item that will
-  port them: ``mesh_shape`` > 1, a non-empty ``fusion_blocks``,
-  ``pruned_scoring`` and ``precision``/``cache_dtype`` = ``"bfloat16"``.
+  port them: ``mesh_shape`` > 1 and ``precision``/``cache_dtype`` =
+  ``"bfloat16"``; ``pruned_scoring`` with ``fusion_blocks`` is a
+  ``ValueError`` (pruned mode never builds the matrices fusion sums).
 """
 
 from __future__ import annotations
@@ -90,10 +97,11 @@ def check_supported(config: dict) -> None:
         raise LookupError(f"Unknown tpu.variant_mode: {tpu['variant_mode']!r}")
     if int(tpu["mesh_shape"]) > 1:
         raise not_ported("tpu.mesh_shape > 1", 8, "multi-GPU")
-    if tpu["fusion_blocks"]:
-        raise not_ported("tpu.fusion_blocks", 7, "fusion and pruning")
-    if tpu["pruned_scoring"]:
-        raise not_ported("tpu.pruned_scoring", 7, "fusion and pruning")
+    if tpu["pruned_scoring"] and tpu["fusion_blocks"]:
+        raise ValueError(
+            "tpu.pruned_scoring is rank-only and cannot be combined with "
+            "tpu.fusion_blocks (fusion sums score matrices; pruned mode never "
+            "materializes one)")
     if int(tpu["gallery_block"]) < 0:
         raise ValueError(f"tpu.gallery_block must be >= 0, got {tpu['gallery_block']!r}")
     for key in ("precision", "cache_dtype"):

@@ -67,6 +67,16 @@
 //   while the tensor cores work on the current chunk. The copies are 4
 //   bytes wide: a clipped tap run does not start 16-byte aligned in
 //   general.
+// - Large canvases: the patch a block stages grows with the kernel canvas
+//   and the print's width ((rows + hk - 1) x (Wb + wk - 1)). Where its
+//   split (hi, lo) pairs do not fit shared memory even with 2 stages (a
+//   73 x 73 canvas over 88-wide prints: fusion's stride-8 block of a
+//   stride-16 cluster), the block stages the patch as plain floats and
+//   splits each A element as it reads it: half the patch bytes, the same
+//   products and sums (bit-identical), more work per product, one A buffer
+//   instead of two and its k-steps not unrolled (the registers the split
+//   needs: 122, no spills), so a k-step's loads wait for the previous
+//   k-step's products.
 // - Epilogue per channel: the channel's correlation is scaled by
 //   einv(c, row window, position) and added to the sum over channels.
 //   einv depends on the row only through its window, and sorted tiles hold
@@ -200,11 +210,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-size_t smem_bytes(int stages, const Geometry& geo) {
-  const size_t patch = (size_t)geo.patch_rows * geo.pitch;
+// 32-bit words of the staged patch: (hi, lo) pairs or plain floats, rounded
+// up to whole 8-byte words (the row offsets after it are 8-byte values)
+size_t patch_words(const Geometry& geo, bool split_patch) {
+  const size_t elems = (size_t)geo.patch_rows * geo.pitch;
+  return split_patch ? 2 * elems : (elems + 1) / 2 * 2;
+}
+
+size_t smem_bytes(int stages, bool split_patch, const Geometry& geo) {
   return 4 * 4 * (size_t)kKC * kBM +                           // split taps (hi, lo) x 2
          4 * 32 * (size_t)kThreads +                           // channel-sum accumulator
-         8 * (patch + kBM) +                                   // split patch, row offsets
+         4 * patch_words(geo, split_patch) + 8 * kBM +         // patch, row offsets
          4 * ((size_t)geo.n_windows * kEP +                    // einv table
               (size_t)stages * kBM * kSA +                     // staged taps
               2 * (size_t)geo.ktab_len + 2 * kBM + 2 * (size_t)geo.n_windows);
@@ -213,8 +229,10 @@ size_t smem_bytes(int stages, const Geometry& geo) {
 // One block: tile blockIdx.y of kBM sorted rows against kBN positions of one
 // print (blockIdx.x = print * n_chunks + chunk, so the blocks that share a
 // tile's taps run together). Warpgroup wg computes positions
-// [64 wg, 64 wg + 64) of the block against all kBM rows.
-template <int S>
+// [64 wg, 64 wg + 64) of the block against all kBM rows. SplitPatch: the
+// patch is staged as (hi, lo) pairs split once a channel, else as floats
+// split where they are read.
+template <int S, bool SplitPatch>
 __global__ void __launch_bounds__(kThreads, 1)
 ncc_score_kernel(const float* __restrict__ p0,    // (C_pad, G, Hb, Wb)
                  const float* __restrict__ int1,  // (C_pad, G, Hb+1, Wb+1)
@@ -235,8 +253,12 @@ ncc_score_kernel(const float* __restrict__ p0,    // (C_pad, G, Hb, Wb)
   // the sum over channels, element i of thread tid at [i][tid]: each
   // thread reads and writes only its own 32 words
   float* accs = reinterpret_cast<float*>(bsplit + 4 * kKC * kBM);
-  uint2* patch = reinterpret_cast<uint2*>(accs + 32 * kThreads);  // split patch, pitch PW
-  long long* rowoff = reinterpret_cast<long long*>(patch + (size_t)PR * PW);  // row's tap slab
+  // the patch, pitch PW: (hi, lo) pairs, or floats
+  uint32_t* patchw = reinterpret_cast<uint32_t*>(accs + 32 * kThreads);
+  uint2* patch = reinterpret_cast<uint2*>(patchw);
+  const float* praw = reinterpret_cast<const float*>(patchw);
+  long long* rowoff = reinterpret_cast<long long*>(  // row's tap slab
+      patchw + (SplitPatch ? 2 * (size_t)PR * PW : ((size_t)PR * PW + 1) / 2 * 2));
   float* etab = reinterpret_cast<float*>(rowoff + kBM);  // einv per (tile window, position)
   float* araw = etab + (size_t)U * kEP;
   int* ktab = reinterpret_cast<int*>(araw + S * kBM * kSA);  // tap -> tap slab offset
@@ -376,9 +398,14 @@ ncc_score_kernel(const float* __restrict__ p0,    // (C_pad, G, Hb, Wb)
       for (int e = tid; e < prb * PW; e += kThreads) {
         const int r = e / PW, sx = e - r * PW;
         const int yy = py0 + r, xx = sx - wk / 2;
-        uint32_t hi, lo;
-        split_tf32(yy >= 0 && yy < Hb && xx >= 0 && xx < Wb ? pc[yy * Wb + xx] : 0.f, hi, lo);
-        patch[e] = make_uint2(hi, lo);
+        const float v = yy >= 0 && yy < Hb && xx >= 0 && xx < Wb ? pc[yy * Wb + xx] : 0.f;
+        if constexpr (SplitPatch) {
+          uint32_t hi, lo;
+          split_tf32(v, hi, lo);
+          patch[e] = make_uint2(hi, lo);
+        } else {
+          patchw[e] = __float_as_uint(v);
+        }
       }
       const size_t ib = ((size_t)c * geo.G + g) * (Hb + 1) * IW;
       const float* i1 = int1 + ib;
@@ -417,18 +444,31 @@ ncc_score_kernel(const float* __restrict__ p0,    // (C_pad, G, Hb, Wb)
     }
 
     const int* ko = koff + kc * kKC;
-    uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
+    // A fragments, double-buffered so that a k-step's loads overlap the
+    // previous k-step's products; one buffer with the float patch, whose
+    // split where it is read needs the registers
+    constexpr int kABuf = SplitPatch ? 2 : 1;
+    uint32_t ahi[kABuf][4], alo[kABuf][4];
+    // the float patch's k-steps are not unrolled: unrolled, they spill
+    constexpr int kKsUnroll = SplitPatch ? kKC / 8 : 1;
+#pragma unroll (kKsUnroll)
     for (int ks = 0; ks < kKC / 8; ++ks) {
-      const int cur = ks & 1;
-      wgmma_wait<1>();  // the products that read this A buffer are done
+      const int cur = ks % kABuf;
+      wgmma_wait<kABuf - 1>();  // the products that read this A buffer are done
       const int k0 = ko[8 * ks + t], k1 = ko[8 * ks + t + 4];
       // a0 (pos g, tap t), a1 (pos g + 8, tap t), a2 (pos g, tap t + 4),
       // a3 (pos g + 8, tap t + 4)
-      const uint2 v0 = patch[off[0] + k0], v1 = patch[off[1] + k0];
-      const uint2 v2 = patch[off[0] + k1], v3 = patch[off[1] + k1];
-      ahi[cur][0] = v0.x; ahi[cur][1] = v1.x; ahi[cur][2] = v2.x; ahi[cur][3] = v3.x;
-      alo[cur][0] = v0.y; alo[cur][1] = v1.y; alo[cur][2] = v2.y; alo[cur][3] = v3.y;
+      if constexpr (SplitPatch) {
+        const uint2 v0 = patch[off[0] + k0], v1 = patch[off[1] + k0];
+        const uint2 v2 = patch[off[0] + k1], v3 = patch[off[1] + k1];
+        ahi[cur][0] = v0.x; ahi[cur][1] = v1.x; ahi[cur][2] = v2.x; ahi[cur][3] = v3.x;
+        alo[cur][0] = v0.y; alo[cur][1] = v1.y; alo[cur][2] = v2.y; alo[cur][3] = v3.y;
+      } else {
+        split_tf32(praw[off[0] + k0], ahi[cur][0], alo[cur][0]);
+        split_tf32(praw[off[1] + k0], ahi[cur][1], alo[cur][1]);
+        split_tf32(praw[off[0] + k1], ahi[cur][2], alo[cur][2]);
+        split_tf32(praw[off[1] + k1], ahi[cur][3], alo[cur][3]);
+      }
       const uint64_t dhi = smem_desc(bhi + ks * 2 * kBM * 4, kBM * 16, 128);
       const uint64_t dlo = smem_desc(blo + ks * 2 * kBM * 4, kBM * 16, 128);
       pin(part);
@@ -475,15 +515,16 @@ ncc_score_kernel(const float* __restrict__ p0,    // (C_pad, G, Hb, Wb)
     }
 }
 
-template <int S>
+template <int S, bool SplitPatch>
 int launch(const float* p0, const float* int1, const float* int2, const float* kern,
            const int* gvalid, const int* plan, int* best, const Geometry& geo, size_t smem,
            cudaStream_t s) {
-  int rc = (int)cudaFuncSetAttribute(ncc_score_kernel<S>,
+  int rc = (int)cudaFuncSetAttribute(ncc_score_kernel<S, SplitPatch>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != 0) return rc;
   const dim3 grid(geo.G * geo.n_chunks, (geo.N + kBM - 1) / kBM);
-  ncc_score_kernel<S><<<grid, kThreads, smem, s>>>(p0, int1, int2, kern, gvalid, plan, best, geo);
+  ncc_score_kernel<S, SplitPatch><<<grid, kThreads, smem, s>>>(p0, int1, int2, kern, gvalid,
+                                                               plan, best, geo);
   return (int)cudaGetLastError();
 }
 
@@ -512,20 +553,25 @@ void ncc_score_tile(int* bm, int* bn, int* kc, int* threads) {
   *threads = kThreads;
 }
 
-// Stages and dynamic shared memory for these sizes: 3 stages if they fit
-// the card's limit, else 2. Returns 0, or a CUDA error code when neither
-// fits.
-int ncc_score_geometry(int Wb, int hk, int wk, int patch_rows, int n_windows,
-                       int* stages, long long* smem) {
+// Stages, patch layout and dynamic shared memory for these sizes: the first
+// that fits the card's limit of 3 stages with the split patch, 2 with it, 3
+// with the float patch, 2 with it. `patch` -1 takes either layout, 0 only
+// the float patch, 1 only the split patch. Returns 0, or a CUDA error code
+// when none fits.
+int ncc_score_geometry(int Wb, int hk, int wk, int patch_rows, int n_windows, int patch,
+                       int* stages, int* split_patch, long long* smem) {
   const Geometry geo = make_geometry(Wb, hk, wk, patch_rows, n_windows);
-  for (int s = 3; s >= 2; --s) {
-    const size_t bytes = smem_bytes(s, geo);
-    if (bytes <= (size_t)kSmemLimit) {
-      *stages = s;
-      *smem = (long long)bytes;
-      return 0;
+  for (int split = 1; split >= 0; --split)
+    for (int s = 3; s >= 2; --s) {
+      if (patch >= 0 && split != patch) continue;
+      const size_t bytes = smem_bytes(s, split, geo);
+      if (bytes <= (size_t)kSmemLimit) {
+        *stages = s;
+        *split_patch = split;
+        *smem = (long long)bytes;
+        return 0;
+      }
     }
-  }
   return (int)cudaErrorInvalidConfiguration;
 }
 
@@ -535,11 +581,12 @@ int ncc_score_geometry(int Wb, int hk, int wk, int patch_rows, int n_windows,
 // window index within its tile (N), per tile (i0, h, j0, w, windows) (5 T)
 // and per tile its n_windows distinct windows (h, w), tallest first
 // (2 n_windows T). n_chunks and patch_rows bound every print's
-// position blocks. Launches on `stream` and returns cudaGetLastError().
+// position blocks; `patch` as in ncc_score_geometry. Launches on `stream`
+// and returns cudaGetLastError().
 int ncc_score(const float* p0, const float* int1, const float* int2, const float* kern,
               const int* gvalid, const int* plan, int* best, float* out, int C, int G, int N,
               int Hb, int Wb, int hk, int wk, int n_chunks, int patch_rows,
-              int n_windows, int true_channels, void* stream) {
+              int n_windows, int true_channels, int patch, void* stream) {
   if (C <= 0 || G <= 0 || N <= 0 || n_chunks <= 0 || patch_rows <= 0 ||
       n_windows <= 0 || (N + kBM - 1) / kBM > 65535 || (long long)G * n_chunks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -550,9 +597,10 @@ int ncc_score(const float* p0, const float* int1, const float* int2, const float
   geo.Hb = Hb;
   geo.n_chunks = n_chunks;
   geo.true_channels = (float)true_channels;
-  int stages = 0;
+  int stages = 0, split = 0;
   long long smem = 0;
-  int rc = ncc_score_geometry(Wb, hk, wk, patch_rows, n_windows, &stages, &smem);
+  int rc = ncc_score_geometry(Wb, hk, wk, patch_rows, n_windows, patch, &stages, &split,
+                              &smem);
   if (rc != 0) return rc;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -560,8 +608,13 @@ int ncc_score(const float* p0, const float* int1, const float* int2, const float
   fill_neg_inf<<<(count + 255) / 256, 256, 0, s>>>(best, count);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  rc = stages == 3 ? launch<3>(p0, int1, int2, kern, gvalid, plan, best, geo, (size_t)smem, s)
-                   : launch<2>(p0, int1, int2, kern, gvalid, plan, best, geo, (size_t)smem, s);
+  const size_t bytes = (size_t)smem;
+  if (split)
+    rc = stages == 3 ? launch<3, true>(p0, int1, int2, kern, gvalid, plan, best, geo, bytes, s)
+                     : launch<2, true>(p0, int1, int2, kern, gvalid, plan, best, geo, bytes, s);
+  else
+    rc = stages == 3 ? launch<3, false>(p0, int1, int2, kern, gvalid, plan, best, geo, bytes, s)
+                     : launch<2, false>(p0, int1, int2, kern, gvalid, plan, best, geo, bytes, s);
   if (rc != 0) return rc;
   finalize<<<(count + 255) / 256, 256, 0, s>>>(best, out, count, geo.true_channels);
   return (int)cudaGetLastError();

@@ -47,6 +47,9 @@ from .ncc_direct import (
 SOURCE = "shoeprint_image_retrieval_torch/csrc/ncc_score.cu"
 REPLACES = "shoeprint_image_retrieval_tpu/ops/pallas/ncc_kernel.py:963"
 ROUTE = "wgmma m64n64k8 3xTF32 (A from registers)"
+# the patch layouts a caller may ask for: the kernel's own choice (the split
+# patch where it fits, else the float patch), or one of them only
+PATCHES = {"auto": -1, "float": 0, "split": 1}
 
 
 class Tile(NamedTuple):
@@ -63,10 +66,10 @@ def _library() -> ctypes.CDLL:
     """The kernel library, built at first use, with its C signatures bound."""
     lib = build.load("ncc_score")
     ptr, cint = ctypes.c_void_p, ctypes.c_int
-    lib.ncc_score.argtypes = [ptr] * 8 + [cint] * 11 + [ptr]
+    lib.ncc_score.argtypes = [ptr] * 8 + [cint] * 12 + [ptr]
     lib.ncc_score.restype = cint
-    lib.ncc_score_geometry.argtypes = [cint] * 5 + [
-        ctypes.POINTER(cint), ctypes.POINTER(ctypes.c_longlong)]
+    lib.ncc_score_geometry.argtypes = [cint] * 6 + [
+        ctypes.POINTER(cint), ctypes.POINTER(cint), ctypes.POINTER(ctypes.c_longlong)]
     lib.ncc_score_geometry.restype = cint
     lib.ncc_score_tile.argtypes = [ctypes.POINTER(cint)] * 4
     lib.ncc_score_tile.restype = None
@@ -224,6 +227,31 @@ def executed_flop(rows: RowPlan, gvalid: np.ndarray, channels: int,
             * float(np.where(live[None], k_pad, 0).sum()))
 
 
+def window_taps(extent: int, canvas: int):
+    """(extent + 1, canvas + 1) table: for a window of size ``k`` centred as
+    the box sums centre it (``[y - k//2, y + (k-1)//2]``) and a print of
+    valid size ``v``, the taps that land inside the print, summed over the
+    print's valid output positions ``y < v``."""
+    k = np.arange(extent + 1)[:, None, None]
+    v = np.arange(canvas + 1)[None, :, None]
+    y = np.arange(canvas)[None, None, :]
+    lo = np.maximum(y - k // 2, 0)
+    hi = np.minimum(y + (k - 1) // 2, v - 1)
+    return np.where(y < v, np.maximum(hi - lo + 1, 0), 0).sum(axis=-1).astype(np.float64)
+
+
+def needed_flop(row_hw, gvalid, c: int, canvas_hw: tuple[int, int]) -> float:
+    """Multiply-adds the correlation needs on these inputs, as FLOP: for each
+    (row, print, channel), the row's window taps that overlap the print's
+    valid region, over the print's valid output positions. Taps that fall on
+    the zero padding around a print are not counted."""
+    hmax, wmax = int(row_hw[:, 0].max()), int(row_hw[:, 1].max())
+    th, tw = window_taps(hmax, canvas_hw[0]), window_taps(wmax, canvas_hw[1])
+    fh = th[row_hw[:, 0][:, None], gvalid[:, 0][None, :]]  # (N, G)
+    fw = tw[row_hw[:, 1][:, None], gvalid[:, 1][None, :]]
+    return 2.0 * c * float((fh * fw).sum())
+
+
 def launch_ncc(
     p0: torch.Tensor,
     int1: torch.Tensor,
@@ -233,6 +261,7 @@ def launch_ncc(
     rows: RowPlan,
     prints: PrintPlan,
     true_channels: int,
+    patch: str = "auto",
 ) -> torch.Tensor:
     """Run the kernel on operands already in its layout -> (N, G) f32.
 
@@ -240,8 +269,10 @@ def launch_ncc(
     (N, C, hk, wk) with C <= C_pad: float32; gvalid (G, 2) int32; all
     contiguous on one CUDA device. ``rows`` is :func:`row_plan` of the
     rows' windows with the kernel's tile, its table on that device;
-    ``prints`` is :func:`print_plan` of these ``gvalid``. Launches on the
-    current stream without synchronising.
+    ``prints`` is :func:`print_plan` of these ``gvalid``. ``patch`` is a
+    key of :data:`PATCHES` (a layout other than ``"auto"`` is for measuring
+    one against the other). Launches on the current stream without
+    synchronising.
     """
     c_pad, g, hb, wb = p0.shape
     n, c, hk, wk = kern.shape
@@ -279,10 +310,12 @@ def launch_ncc(
             p0.data_ptr(), int1.data_ptr(), int2.data_ptr(), kern.data_ptr(),
             gvalid.data_ptr(), rows.table.data_ptr(), best.data_ptr(), out.data_ptr(),
             c, g, n, hb, wb, hk, wk, prints.n_chunks, patch_rows(prints, hk),
-            rows.windows.shape[1], int(true_channels), stream,
+            rows.windows.shape[1], int(true_channels), PATCHES[patch], stream,
         )
     if rc != 0:
-        raise RuntimeError(f"ncc_score kernel launch failed: {lib.ncc_error_string(rc).decode()} ({rc})")
+        raise RuntimeError(f"ncc_score kernel launch failed: {lib.ncc_error_string(rc).decode()} "
+                           f"({rc}) at Wb={wb} hk={hk} wk={wk}, {patch_rows(prints, hk)} patch "
+                           f"rows, {rows.windows.shape[1]} windows a tile, {patch} patch")
     launch_ncc.launches += 1
     return out
 
@@ -290,18 +323,22 @@ def launch_ncc(
 launch_ncc.launches = 0  # kernel launches since the caller last reset it
 
 
-def launch_geometry(wb: int, hk: int, wk: int, rows: RowPlan, prints: PrintPlan) -> dict:
-    """The kernel's block shape, stages and shared memory for these sizes
-    and this plan (from the library itself, so the report matches what
-    runs)."""
-    stages, smem = ctypes.c_int(), ctypes.c_longlong()
+def launch_geometry(wb: int, hk: int, wk: int, rows: RowPlan, prints: PrintPlan,
+                    patch: str = "auto") -> dict:
+    """The kernel's block shape, stages, patch layout (``split`` (hi, lo)
+    pairs, or ``float`` split where read, for canvases whose split patch
+    does not fit) and shared memory for these sizes and this plan (from the
+    library itself, so the report matches what runs)."""
+    stages, split, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
     rc = _library().ncc_score_geometry(wb, hk, wk, patch_rows(prints, hk), rows.windows.shape[1],
-                                       ctypes.byref(stages), ctypes.byref(smem))
+                                       PATCHES[patch], ctypes.byref(stages), ctypes.byref(split),
+                                       ctypes.byref(smem))
     if rc != 0:
-        raise RuntimeError(f"no launch geometry for Wb={wb} hk={hk} wk={wk}")
+        raise RuntimeError(f"no launch geometry for Wb={wb} hk={hk} wk={wk} ({patch} patch)")
     tile = kernel_tile()
     return {"route": ROUTE, "rows_per_block": tile.rows, "positions_per_block": tile.positions,
             "taps_per_stage": tile.taps, "threads": tile.threads, "stages": stages.value,
+            "patch": "split" if split.value else "float",
             "smem_bytes": smem.value}
 
 
@@ -336,6 +373,59 @@ def auto_gallery_block(g_total: int, bytes_per_print: int, free_bytes: int,
     return max(1, min(g_total, room // max(1, bytes_per_print)))
 
 
+def equal_blocks(g_total: int, block: int) -> int:
+    """Prints per block when a gallery of ``g_total`` prints is cut into
+    blocks of at most ``block``: ``n = ceil(g_total / block)`` blocks of
+    ``ceil(g_total / n)``, so no short tail block is scored on its own (the
+    JAX engine's balanced auto blocks; it also rounds to its lane pack,
+    which the card does not have)."""
+    if block >= g_total:
+        return g_total
+    n = -(-g_total // block)
+    return -(-g_total // n)
+
+
+# Variant rows a scoring call takes at most when tpu.probe_batch is 0 on a
+# card: the deepest point of the NCC kernel's sweep over probe batches
+# (benchmarks/kernel_probe.py, PB = 320 x 25 variants; NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md §6). The sweep was still gaining there (2.8 % a
+# probe from PB = 224), so this is not where gains stop: deeper batches are
+# not measured. At the bench's G = 300 the memory model's fit (~9,700 rows)
+# binds soon after; at 10,240 prints it binds first (4,275 rows).
+H100_PROBE_ROWS = 8000
+
+
+def probe_row_bytes(channels: int, feat_hw: tuple[int, int], template_hw: tuple[int, int],
+                    kernel_hw: tuple[int, int], n_rot: int, n_scl: int, n_var: int,
+                    prints: int, plain_hw: tuple[int, int] | None = None) -> int:
+    """Device bytes one variant row of a scoring call against ``prints``
+    prints costs: its folded row (N, C, hk, wk) twice (the classes and their
+    concatenation), the fold's temporaries on the template canvas (four
+    copies), its share of its probe's build temporaries (the rotation gather
+    and its mask on the feature canvas, every scale's resampled stack and one
+    vertical pass on the template canvas) and its row of the kernel's
+    ``out`` and ``best`` (f32 and int32 per print). ``plain_hw`` (the
+    cache's Hb x Wb) adds the plain scorer's five (N, G, Hb, Wb)
+    temporaries."""
+    c, r1 = channels, 1 + n_rot
+    tc = template_hw[0] * template_hw[1]
+    per_probe = 4 * c * r1 * (2 * feat_hw[0] * feat_hw[1] + (n_scl + 1) * tc)
+    row = 4 * c * (2 * kernel_hw[0] * kernel_hw[1] + 4 * tc) + 8 * prints
+    if plain_hw is not None:
+        row += 5 * 4 * prints * plain_hw[0] * plain_hw[1]
+    return row + -(-per_probe // max(1, n_var))
+
+
+def auto_probe_rows(row_bytes: int, room_bytes: int, tile_rows: int,
+                    max_rows: int = H100_PROBE_ROWS) -> int:
+    """Variant rows per scoring call on a card: whole tiles of ``tile_rows``
+    (the kernel's tile, 1 for the plain scorer), as many as ``room_bytes``
+    holds at ``row_bytes`` a row (:func:`probe_row_bytes`), at most
+    ``max_rows``, at least one tile."""
+    fit = room_bytes // max(1, row_bytes * tile_rows)
+    return max(1, min(fit, max_rows // tile_rows)) * tile_rows
+
+
 def host_row_hw(window_hw: np.ndarray, layout: VariantLayout,
                 slot_hw: np.ndarray | None = None, slot_map: np.ndarray | None = None) -> np.ndarray:
     """(N, 2) each row's post-crop window from host copies of the stack's
@@ -354,6 +444,7 @@ def score_ncc(
     slot_hw: torch.Tensor | None = None,
     slot_map: torch.Tensor | None = None,
     plan: tuple[RowPlan, PrintPlan] | None = None,
+    patch: str = "auto",
 ) -> torch.Tensor:
     """Fused NCC scores (N, G) f32, the same quantity as ``score_direct``.
 
@@ -362,7 +453,7 @@ def score_ncc(
     (:func:`row_plan` of the rows' windows, :func:`print_plan` of the
     cache's valid sizes); without it the plan is made here from copies of
     the windows and valid sizes brought to the host, which waits for the
-    device.
+    device. ``patch`` as in :func:`launch_ncc`.
     """
     if cache.p0.device.type == "cpu":
         return score_direct(cache, packed, layout, true_channels, slot_hw, slot_map)
@@ -374,4 +465,4 @@ def score_ncc(
                          cache.p0.device),
                 print_plan(gvalid.cpu().numpy(), tile.positions))
     return launch_ncc(cache.p0, cache.int1, cache.int2, packed.kernels.contiguous(), gvalid,
-                      *plan, true_channels)
+                      *plan, true_channels, patch)

@@ -29,10 +29,13 @@ retrieval/engine.py`` (reference run.py:17-34 + similarity.py:129-375):
 * with ``tpu.ncc_backend = "fft"``, the reference's FFT correlation instead
   of the direct cache and kernel: one FFT cache per gallery block and each
   probe's unfolded variant stack (``ops/ncc.py``,
-  :meth:`Pipeline._score_cluster_fft`).
+  :meth:`Pipeline._score_cluster_fft`);
+* with ``tpu.fusion_blocks``, each cluster scored once per listed block at
+  its planned scale and the matrices summed; with ``tpu.pruned_scoring``,
+  exact ranks from a channel-prefix bound (``retrieval/pruned.py``).
 
-Not carried over (ROADMAP.md, 'Still to port'): the TPU sizing helpers,
-fusion, pruning, the mesh.
+Not carried over (ROADMAP.md, 'Still to port'): the TPU sizing helpers and
+the mesh.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import threading
 import warnings
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import Iterable, Sequence
 
@@ -71,11 +74,15 @@ from ..ops.ncc_direct import (
     score_direct,
 )
 from ..ops.ncc_kernel import (
+    AUTO_BLOCK_MARGIN_BYTES,
     auto_gallery_block,
+    auto_probe_rows,
+    equal_blocks,
     gallery_block_bytes_per_print,
     host_row_hw,
     kernel_tile,
     print_plan,
+    probe_row_bytes,
     row_plan,
     score_ncc,
 )
@@ -84,10 +91,11 @@ from ..ops.topk import ranks_on_device
 from ..ops.warp import pil_resize_size, resample_weights, rotate_index_map
 from ..utils.tracing import profile_trace, stage_timer
 from .gallery import GalleryFeatureCache
+from .pruned import pruned_ranks
 
-# Probes per scoring call when tpu.probe_batch is 0: 56 probes x 25 variants
-# = 1400 variant rows, the TPU engine's main-path depth. Re-deriving it for
-# the H100 is ROADMAP work ('H100 sizing').
+# Probes per scoring call when tpu.probe_batch is 0 on the CPU: 56 probes x
+# 25 variants = 1400 variant rows, the TPU engine's main-path depth. On a
+# card the rows come from ops/ncc_kernel.auto_probe_rows.
 DEFAULT_PROBE_BATCH = 56
 # With more than one gallery block, every probe batch's variant stack is
 # built once and kept across blocks while all of them take less than this
@@ -155,9 +163,11 @@ class ClusterOutput:
     n_queries: int
     block: int
     scale: float
-    # (Q, G) max-over-variant scores in the original gallery order, or with
-    # tpu.rank_on_device the DeviceScores they stay in (materialize() pulls them)
-    scores: np.ndarray | DeviceScores
+    # (Q, G) max-over-variant scores in the original gallery order (with
+    # tpu.fusion_blocks their sum over the blocks), or with tpu.rank_on_device
+    # the DeviceScores they stay in (materialize() pulls them); None with
+    # tpu.pruned_scoring, which ranks without a score matrix
+    scores: np.ndarray | DeviceScores | None
 
 
 @dataclass
@@ -328,7 +338,9 @@ class Pipeline:
     ``lookahead_seconds`` (below), ``ingest_tiers`` (the loader tier that
     served each file set), ``clahe_routes`` (``host`` or ``device``, once per
     cluster whose features were extracted), ``gallery_blocks_scored`` and
-    ``cache_bytes`` (each scored block's scoring cache, direct or FFT).
+    ``cache_bytes`` (each scored block's scoring cache, direct or FFT),
+    ``probe_batches`` (the probes per call of each direct scoring call) and
+    ``prune_stats`` (``pruned_ranks``' statistics, once per pruned cluster).
 
     Stage seconds are kept per thread. The calling thread's stages go into
     ``stage_seconds``; each ends with a device-wide synchronise, so a stage
@@ -361,6 +373,8 @@ class Pipeline:
         self.clahe_routes: Counter = Counter()
         self.gallery_blocks_scored = 0  # gallery blocks scored, over all clusters
         self.cache_bytes: list[int] = []  # each scored gallery block's scoring cache
+        self.probe_batches: list[int] = []  # probes per call, each direct scoring call
+        self.prune_stats: list[dict] = []  # pruned_ranks' stats, each pruned cluster
         self._mode_cache: dict[str, str] = {}
         self._la_pool: ThreadPoolExecutor | None = None
         self._lookahead = None  # (plan, future of its features)
@@ -636,17 +650,67 @@ class Pipeline:
     def _gallery_block(self, g_total: int, bytes_per_print: int, stack_bytes: int,
                        kept_stacks: int) -> int:
         """Prints per gallery block: ``tpu.gallery_block`` when it is set;
-        for 0, the largest block that fits the card's free memory
-        (:func:`~..device.free_bytes`,
-        :func:`~..ops.ncc_kernel.auto_gallery_block`), and on the CPU one
-        block."""
+        for 0, on the CPU one block, on a card the largest block that fits
+        its free memory (:func:`~..device.free_bytes`,
+        :func:`~..ops.ncc_kernel.auto_gallery_block`) evened out into equal
+        blocks (:func:`~..ops.ncc_kernel.equal_blocks`), so no short tail
+        block is scored alone."""
         gb = int(self.config["tpu"]["gallery_block"])
         if gb > 0:
             return min(gb, g_total)
         if self.device.type != "cuda":
             return g_total
-        return auto_gallery_block(g_total, bytes_per_print, free_bytes(self.device),
-                                  stack_bytes, kept_stacks)
+        return equal_blocks(g_total, auto_gallery_block(
+            g_total, bytes_per_print, free_bytes(self.device), stack_bytes, kept_stacks))
+
+    def _probe_batch_and_block(self, n_q: int, g_total: int, true_c: int,
+                               feat_hw: tuple[int, int], raw_hw: tuple[int, int],
+                               plan: VariantPlan, n_var: int, tile_rows: int | None) -> tuple[int, int]:
+        """(probes per scoring call, prints per gallery block) for a cluster of
+        ``n_q`` probes on ``feat_hw`` canvases against ``g_total`` prints of
+        ``raw_hw`` maps, ``n_var`` variants a probe; ``tile_rows`` is the
+        kernel's tile, ``None`` for the plain scorer.
+
+        ``tpu.probe_batch`` when set, 56 for 0 on the CPU. For 0 on a card,
+        in the JAX engine's order: the rows that fit the card for a block of
+        up to 1024 prints (:func:`~..ops.ncc_kernel.auto_probe_rows`), the
+        gallery block for that batch (:meth:`_gallery_block`), then the rows
+        that fit beside that block's cache, cut into equal batches.
+        """
+        kernel_hw = (plan.template_canvas[0] - 2 * EDGE_CROP,
+                     plan.template_canvas[1] - 2 * EDGE_CROP)
+        pb_cfg = int(self.config["tpu"]["probe_batch"])
+        auto = pb_cfg == 0 and self.device.type == "cuda"
+        plain_hw = None if tile_rows else (raw_hw[0] - 2 * EDGE_CROP, raw_hw[1] - 2 * EDGE_CROP)
+
+        def rows(prints: int, room: int) -> int:
+            row_bytes = probe_row_bytes(true_c, feat_hw, plan.template_canvas, kernel_hw,
+                                        plan.n_rot, plan.n_scl, n_var, prints, plain_hw)
+            return auto_probe_rows(row_bytes, room, tile_rows or 1)
+
+        if auto:
+            pb = rows(min(g_total, 1024), free_bytes(self.device) - AUTO_BLOCK_MARGIN_BYTES) // n_var
+        else:
+            pb = pb_cfg or DEFAULT_PROBE_BATCH
+        pb = max(1, min(n_q, pb))
+        stack_bytes = pb * n_var * true_c * kernel_hw[0] * kernel_hw[1] * 4
+        gb = self._gallery_block(
+            g_total, gallery_block_bytes_per_print(true_c, *raw_hw, pb * n_var), stack_bytes,
+            min(-(-n_q // pb), max(1, int(PREBUILD_BYTES // stack_bytes))))
+        if auto:
+            # beside the block's cache and, with more than one block, the
+            # stacks kept across blocks; then evened out, so the last batch
+            # (padded to the batch's shape) repeats as few probes as can be.
+            # A call's last tile may then be part-full (205 probes x 25
+            # variants = 80 tiles and 5 rows): whole tiles would need a
+            # multiple of 64 probes a batch at 25 variants, and at the
+            # fewest calls the equal batch already runs the fewest tiles (a
+            # larger batch only pads the last call with repeated probes)
+            room = (free_bytes(self.device) - AUTO_BLOCK_MARGIN_BYTES
+                    - gb * gallery_block_bytes_per_print(true_c, *raw_hw, 0)
+                    - (int(PREBUILD_BYTES) if gb < g_total else 0))
+            pb = equal_blocks(n_q, max(1, min(n_q, rows(gb, room) // n_var)))
+        return pb, gb
 
     def _score_cluster(
         self,
@@ -682,8 +746,6 @@ class Pipeline:
         include_rots_unscaled, class_counts = variant_classes(
             self.config["tpu"]["variant_mode"], plan.n_rot, plan.n_scl
         )
-        pb = max(1, min(n_q, int(self.config["tpu"]["probe_batch"]) or DEFAULT_PROBE_BATCH))
-        layout = VariantLayout(class_counts, pb)
         # score_ncc takes the plain version itself for CPU tensors
         scorer = score_direct if self.config["tpu"]["ncc_backend"] == "direct" else score_ncc
         # the kernel's tile plan is made on the host: its rows' half once per
@@ -698,14 +760,13 @@ class Pipeline:
         g_maps = torch.as_tensor(g_maps)
         g_total = len(g_valid)
 
+        pb, gb = self._probe_batch_and_block(
+            n_q, g_total, true_c, (hc, wc), tuple(g_maps.shape[2:]), plan, sum(class_counts),
+            None if tile is None else tile.rows)
+        self.probe_batches.append(pb)
+        layout = VariantLayout(class_counts, pb)
         starts = list(range(0, n_q, pb))
         stack_bytes = layout.n_variants * true_c * kernel_hw[0] * kernel_hw[1] * 4
-        gb = self._gallery_block(
-            g_total,
-            gallery_block_bytes_per_print(true_c, g_maps.shape[2], g_maps.shape[3],
-                                          layout.n_variants),
-            stack_bytes, min(len(starts), max(1, int(PREBUILD_BYTES // stack_bytes))),
-        )
         n_blocks = -(-g_total // gb)
         prebuild = n_blocks > 1 and len(starts) * stack_bytes < PREBUILD_BYTES
         order = np.argsort(-g_valid[:, 0], kind="stable")
@@ -943,21 +1004,77 @@ class Pipeline:
 
     def run_cluster(self, plan, next_plan=None) -> ClusterOutput:
         """Score one cluster and rank (the reference's run.py:17-34 body);
-        ``next_plan``, where given, is the cluster to prepare meanwhile."""
-        q_maps, q_valid, g_maps, g_valid, q_files = self._cluster_features(plan, next_plan)
-        scores = self._score_cluster(q_maps, q_valid, g_maps, g_valid)
+        ``next_plan``, where given, is the cluster to prepare meanwhile.
+
+        ``tpu.fusion_blocks``: the cluster is scored once per listed
+        truncation block at its planned scale and the score matrices are
+        summed before ranking (score-level fusion: the blocks' correlation
+        grids have other strides, so their shift axes do not align for a
+        sum of maps). No lookahead runs then, as in the JAX engine: each
+        block's features are made when it is scored. ``tpu.pruned_scoring``:
+        :meth:`_run_cluster_pruned`.
+        """
+        tpu = self.config["tpu"]
+        if tpu["pruned_scoring"]:
+            return self._run_cluster_pruned(plan, next_plan)
+        fusion = list(tpu["fusion_blocks"] or [])
+        if fusion:
+            scores = None
+            for fb in fusion:
+                s, q_files = self._cluster_scores(replace(plan, block=fb))
+                if isinstance(s, DeviceScores):  # fusion sums matrices on the host
+                    s = s.materialize()
+                scores = s if scores is None else scores + s
+        else:
+            scores, q_files = self._cluster_scores(plan, next_plan)
         pairs = self.dataset.matching_pairs(q_files)
         if isinstance(scores, DeviceScores):
             ranks = scores.ranks(pairs)
         else:
             ranks = ranks_from_scores(scores, pairs)
+        self._report(q_files, ranks)
+        return ClusterOutput(ranks, pairs, len(q_files), plan.block, plan.scale, scores)
+
+    def _cluster_scores(self, plan, next_plan=None):
+        """(scores, q_files) of one (cluster, block): features, then
+        :meth:`_score_cluster`; ``run_cluster`` runs it once, or once per
+        fusion block."""
+        q_maps, q_valid, g_maps, g_valid, q_files = self._cluster_features(plan, next_plan)
+        return self._score_cluster(q_maps, q_valid, g_maps, g_valid), q_files
+
+    def _run_cluster_pruned(self, plan, next_plan=None) -> ClusterOutput:
+        """Rank one cluster through :func:`~.pruned.pruned_ranks`, with
+        :meth:`_score_cluster` as its score function (device scores pulled
+        to the host: its bound arithmetic runs there). The maps stay where
+        extraction left them; each pass slices them there."""
+        q_maps, q_valid, g_maps, g_valid, q_files = self._cluster_features(plan, next_plan)
+        pairs = self.dataset.matching_pairs(q_files)
+
+        def score_fn(qm, qv, gm, gv):
+            s = self._score_cluster(qm, qv, gm, gv)
+            return s.materialize() if isinstance(s, DeviceScores) else s
+
+        tpu = self.config["tpu"]
+        with self._stage("score-pruned"):
+            ranks, stats = pruned_ranks(
+                score_fn, q_maps, q_valid, g_maps, g_valid, pairs,
+                k=int(tpu["prune_channels"] or 0), margin=float(tpu["prune_margin"] or 5e-3))
+        self.prune_stats.append(stats)
+        if self.verbose:
+            print(f"pruned scoring: prune_rate={stats['prune_rate']:.3f} "
+                  f"survivors={stats['survivors']}/{len(g_valid)} "
+                  f"pair_frac={stats['pair_frac']:.3f} k={stats['k']}")
+        self._report(q_files, ranks)
+        return ClusterOutput(ranks, pairs, len(q_files), plan.block, plan.scale, None)
+
+    def _report(self, q_files: Sequence[str], ranks: np.ndarray) -> None:
+        """The per-query rank lines and what served ingest and CLAHE."""
         if self.verbose:
             for qf, rank in zip(q_files, ranks):
                 print(f"Print {parse_image_id(qf, self.dataset.type)} "
                       f"true match ranked {rank}")
             print(f"ingest tiers so far {dict(self.ingest_tiers)}, "
                   f"CLAHE routes {dict(self.clahe_routes)}")
-        return ClusterOutput(ranks, pairs, len(q_files), plan.block, plan.scale, scores)
 
     def close(self) -> None:
         """Retire the lookahead and prewarm threads: wait for a lookahead

@@ -56,10 +56,11 @@ def profile_trace(log_dir: str | Path | None, name: str = "trace",
     prof.export_chrome_trace(str(out / f"{name}.json"))
 
 
-def device_ms(fn, reps: int, device: torch.device) -> float:
-    """Mean time of ``fn`` over ``reps`` calls after one warm-up: CUDA
-    events on the card, the host clock on the CPU."""
-    fn()
+def device_ms(fn, reps: int, device: torch.device, warm: bool = True) -> float:
+    """Mean time of ``fn`` over ``reps`` calls, after one warm-up call where
+    ``warm``: CUDA events on the card, the host clock on the CPU."""
+    if warm:
+        fn()
     if device.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(reps):

@@ -72,6 +72,9 @@ def _case(seed, c, n_prints, counts, pb, canvas, kernel_hw):
         (5, 8, 6, (1,), 128, (36, 36), (32, 32)),       # N = 128, one variant, 32 x 32 canvas
         (6, 8, 5, (1, 3), 4, (51, 43), (47, 39)),       # the fixture's odd 47 x 39 canvas
         (7, 4, 4, (1, 2), 3, (14, 12), (30, 26)),       # windows far larger than the prints
+        # fusion's stride-8 block of a stride-16 cluster: a 73 x 73 canvas
+        # over 88-wide prints, whose split patch does not fit (the float patch)
+        (8, 8, 3, (1, 8), 3, (92, 92), (73, 73)),
     ],
 )
 def test_kernel_matches_plain(seed, c, n_prints, counts, pb, canvas, kernel_hw):
@@ -86,8 +89,18 @@ def test_kernel_matches_plain(seed, c, n_prints, counts, pb, canvas, kernel_hw):
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= TOL
     # the plan made on the host from host data, as the engine makes it
-    again = ncc_kernel.score_ncc(cache, packed, layout, c, plan=_host_plan(cache, packed, layout))
+    plan = _host_plan(cache, packed, layout)
+    again = ncc_kernel.score_ncc(cache, packed, layout, c, plan=plan)
     assert torch.equal(again, got)
+    geo = ncc_kernel.launch_geometry(cache.p0.shape[3], *kernel_hw, *plan)
+    assert geo["patch"] == ("float" if kernel_hw == (73, 73) else "split")
+    # the float patch splits where it reads: the same products and sums
+    if geo["patch"] == "split":
+        floats = ncc_kernel.score_ncc(cache, packed, layout, c, plan=plan, patch="float")
+        assert torch.equal(floats, got)
+    else:
+        with pytest.raises(RuntimeError, match="split patch"):
+            ncc_kernel.score_ncc(cache, packed, layout, c, plan=plan, patch="split")
 
 
 def _host_plan(cache, packed, layout):
@@ -450,3 +463,98 @@ def test_fft_scorer_on_the_card_matches_cpu_and_ranks_as_direct(tmp_path):
     for f, d in zip(outs["fft"], outs["direct"]):
         np.testing.assert_array_equal(f.ranks, d.ranks)
         np.testing.assert_allclose(f.scores, d.scores, atol=TOL)
+
+
+def test_fusion_and_pruned_pipelines_kernel_equal_plain(tmp_path):
+    """``fusion_blocks`` and ``pruned_scoring`` on the card: the kernel's
+    ranks equal the plain scorer's, fusion's summed scores within the
+    kernel's tolerance twice over, pruned ranks equal the full path's, and
+    the kernel launched in every kernel run."""
+    _need_card()
+    from shoeprint_image_retrieval_torch.config import load_config
+    from shoeprint_image_retrieval_torch.retrieval.engine import Pipeline
+
+    cfg_path = _pipeline_config(tmp_path)
+    runs = {}
+    for mode, extra in (("full", {}), ("fusion", {"fusion_blocks": [4, 3]}),
+                        ("pruned", {"pruned_scoring": True, "prune_channels": 8})):
+        for backend in ("auto", "direct"):
+            cfg = load_config(cfg_path)
+            cfg["tpu"].update(ncc_backend=backend, **extra)
+            before = ncc_kernel.launch_ncc.launches
+            runs[mode, backend] = list(Pipeline(cfg, weights_dir=None, verbose=False,
+                                                device="cuda").run())
+            assert (ncc_kernel.launch_ncc.launches > before) == (backend == "auto")
+    for mode in ("full", "fusion", "pruned"):
+        for k, p, f in zip(runs[mode, "auto"], runs[mode, "direct"], runs["full", "direct"]):
+            np.testing.assert_array_equal(k.ranks, p.ranks)
+            if mode == "pruned":
+                assert k.scores is None
+                np.testing.assert_array_equal(k.ranks, f.ranks)
+            else:
+                np.testing.assert_allclose(k.scores, p.scores, atol=2 * TOL)
+
+
+def test_auto_probe_rows_on_the_card(tmp_path):
+    """``probe_batch = 0`` on the card: whole tiles of the kernel's rows,
+    within the card's row cap and its free memory; the scores equal an
+    explicit probe batch's within the kernel's tolerance, ranks identical."""
+    _need_card()
+    from shoeprint_image_retrieval_torch.config import load_config
+    from shoeprint_image_retrieval_torch.device import free_bytes, resolve_device
+    from shoeprint_image_retrieval_torch.retrieval.engine import Pipeline
+
+    dev = resolve_device("cuda")
+    tile = ncc_kernel.kernel_tile()
+    row_bytes = ncc_kernel.probe_row_bytes(176, (36, 36), (38, 38), (34, 34), 7, 3, 25, 300)
+    rows = ncc_kernel.auto_probe_rows(row_bytes, free_bytes(dev), tile.rows)
+    assert rows % tile.rows == 0 and tile.rows <= rows <= ncc_kernel.H100_PROBE_ROWS
+    assert ncc_kernel.auto_probe_rows(row_bytes, 10 * row_bytes * tile.rows, tile.rows) <= 10 * tile.rows
+    outs = {}
+    for pb in (0, 3):
+        cfg = load_config(_pipeline_config(tmp_path / str(pb)))
+        cfg["tpu"]["probe_batch"] = pb
+        pipe = Pipeline(cfg, weights_dir=None, verbose=False, device="cuda")
+        outs[pb] = list(pipe.run())
+        if pb == 0:  # the fixture's 4 queries fit one call
+            assert pipe.probe_batches == [o.n_queries for o in outs[0]]
+    for a, b in zip(outs[0], outs[3]):
+        np.testing.assert_array_equal(a.ranks, b.ranks)
+        np.testing.assert_allclose(a.scores, b.scores, atol=TOL)
+
+
+def test_pruned_ranks_with_prints_tied_to_the_true_match(tmp_path):
+    """Pruned ranks on the card where other prints score as the true match
+    does: exact copies of a true match at lower and higher gallery indices
+    (an exact tie in one call), and copies scaled by 1 + 1e-7 (NCC ignores
+    the scale, so they differ from the true match by rounding alone). Pass
+    0's batch-diagonal calls tile their rows otherwise than the full path,
+    so only pass 2's own true-pair score ranks them as the full path does."""
+    _need_card()
+    from shoeprint_image_retrieval_torch import bench
+    from shoeprint_image_retrieval_torch.benchmarks.bench_pruned import make_workloads
+    from shoeprint_image_retrieval_torch.ops.topk import ranks_on_device
+    from shoeprint_image_retrieval_torch.retrieval.pruned import pruned_ranks
+
+    w = make_workloads(quick=True)["planted"]
+    gal, g_sizes, pairs = w["gal"].copy(), w["g_sizes"].copy(), w["pairs"]
+    free = [j for j in range(len(gal)) if j not in set(pairs.tolist())]
+    copies = {}
+    for qi, (j, scale) in enumerate(zip((free[0], free[-1], free[1], free[-2]),
+                                        (1.0, 1.0, 1.0 + 1e-7, 1.0 + 1e-7))):
+        gal[j], g_sizes[j] = gal[pairs[qi]] * np.float32(scale), g_sizes[pairs[qi]]
+        copies[qi] = j
+    pipe = bench.engine_pipeline(tmp_path, 4, torch.device("cuda"))
+    q_in, g_in = torch.from_numpy(w["qmaps"]).cuda(), torch.from_numpy(gal).cuda()
+
+    def score_fn(qm, qv, gm, gv):
+        return pipe._score_cluster(qm, qv, gm, gv)
+
+    full = score_fn(q_in, w["q_sizes"], g_in, g_sizes)
+    assert full[0, copies[0]] == full[0, pairs[0]] and full[1, copies[1]] == full[1, pairs[1]]
+    want = ranks_on_device(torch.from_numpy(full), torch.from_numpy(pairs)).numpy()
+    got, stats = pruned_ranks(score_fn, q_in, w["q_sizes"], g_in, g_sizes, pairs, k=2, batch0=2)
+    pipe.close()
+    np.testing.assert_array_equal(got, want)
+    assert got[1] == 2  # the copy at the higher index ranks above the true match
+    assert stats["survivors"] >= len(set(pairs.tolist()))

@@ -63,6 +63,17 @@ BACKBONE_FFT_MODULES = {
     "shoeprint_image_retrieval_torch.ops.ncc",
 }
 
+# modules added with H100 sizing, fusion and pruned scoring
+SIZING_PRUNING_MODULES = {
+    "shoeprint_image_retrieval_torch.retrieval.pruned",
+    "shoeprint_image_retrieval_torch.benchmarks.kernel_probe",
+    "shoeprint_image_retrieval_torch.benchmarks.bench_build",
+    "shoeprint_image_retrieval_torch.benchmarks.bench_cachebuild",
+    "shoeprint_image_retrieval_torch.benchmarks.bench_fusion",
+    "shoeprint_image_retrieval_torch.benchmarks.bench_pruned",
+    "shoeprint_image_retrieval_torch.benchmarks.bench_autosize",
+}
+
 
 def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", BLOCKED_IMPORTS], cwd=REPO,
@@ -73,6 +84,7 @@ def test_port_imports_with_jax_blocked():
     assert MEASUREMENT_MODULES <= names
     assert FRONT_END_MODULES <= names
     assert BACKBONE_FFT_MODULES <= names
+    assert SIZING_PRUNING_MODULES <= names
 
 
 def test_no_source_names_jax_or_the_jax_package():
