@@ -8,8 +8,11 @@ Phases, each printing one JSON line:
 
 1. ``build``: compiles every kernel of the port (``csrc/*.cu``) from the
    sources in the checkout for ``sm_90a``, one ``nvcc`` per source, all
-   started together, with the compiler's register/shared-memory report;
-   fails if the NCC kernel or the probe kernel spills registers.
+   started together, with the compiler's register/shared-memory report and
+   each entry function's registers and spills (the NCC kernel's six
+   instantiations: the 3xTF32 leg's split and float patches and the bf16
+   leg, each at 2 and 3 stages); fails if the NCC kernel or the probe
+   kernel spills registers or an NCC instantiation is missing.
 2. ``kernel``: the fused NCC scorer ``score_ncc`` (the wrapper the engine
    calls; a 3xTF32 ``wgmma`` implicit GEMM) against its plain PyTorch
    version on the card, at the main-path shapes (G = 300 prints of 38-46 px
@@ -78,6 +81,22 @@ Phases, each printing one JSON line:
    3 queries (the NumPy oracle's time bounds its size): the pipeline's
    ranks against the oracle's (cv2's CLAHE, extraction at native shape,
    the NumPy correlation), which must be identical.
+   Then ``bf16``: ``tpu.precision`` and ``cache_dtype = "bfloat16"``. One
+   main-path call (PB = 56) through the NCC kernel's bf16 leg (``wgmma``
+   m64n64k16 on operands rounded to bf16) against the plain scorer on the
+   same bf16 operands (within 1e-5, true-match ranks identical), with its
+   ms, its bound at 989 TFLOP/s and share of it, the plain ms, one
+   ``F.conv2d`` on the bf16 operands, and its max |Δ| against the 3xTF32
+   leg, which must exceed 1e-5; the fixture with ``precision =
+   "bfloat16"``, plain then kernel, and again with ``cache_dtype =
+   "bfloat16"``, ``gallery_block = 40`` and ``SIR_DEVICE_MAPS_MAX = 0``
+   (kernel and plain ranks and S-lines identical, scores within 1e-5, the
+   at-rest run's more than 1e-5 from the first's, only the bf16 leg
+   launched, counts reset just before each
+   kernel run and read just after; the S-lines beside the f32 run's);
+   the full-width EfficientNetV2_M at block 6 on one ``bench_extract``
+   batch, bf16 against f32 (nonzero, within 1e-2 of the activation scale),
+   and ``bench_extract`` images/s in bf16.
 9. ``backbones``: all 13 model strings at full depth and width from seeded
    init on one masked batch of two images (a 160 x 144 canvas; valid 160 x
    144 and 121 x 97), on the card against the same module and weights on
@@ -114,7 +133,8 @@ Phases, each printing one JSON line:
    FLOP, TFLOP/s, bound share) and at PB = 56 in each of its two patch
    layouts (split, float, float, split), the per-batch variant build
    (``bench_build``), the per-block cache build at G = 300 and 2048
-   (``bench_cachebuild``), the engine on host-resident maps, and the probe
+   (``bench_cachebuild``), the engine on host-resident maps in f32 and at
+   rest in bf16 (``tpu.cache_dtype``), and the probe
    batch and gallery block ``probe_batch = 0`` gives at G = 300 and 10,240
    (with the block before the equal split).
 15. ``pruned``: ``benchmarks/bench_pruned`` on its planted and random
@@ -130,7 +150,9 @@ Phases, each printing one JSON line:
 
 Every phase reports its seconds (``wall_s``). Then a ``{"kernels": [...]}``
 line (the NCC kernel's entry also gives its launches in ``fusion``'s kernel
-run and in ``pruned``'s two pruned paths), the card's name and power limit
+run and in ``pruned``'s two pruned paths, and per leg, 3xTF32 and bf16, its
+ms, plain ms, bound, library ms, max |Δ| and launches on its path), the
+card's name and power limit
 as ``nvidia-smi`` prints them, and as the last line
 ``{"ok": true, "device": {...}}``. Any fault exits non-zero before that line;
 without a CUDA device it exits 2 and prints no result.
@@ -142,6 +164,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -149,6 +172,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 # probe kernel vs plain, relative to max |plain|: f32 and bf16 sums in another
 # order (bf16 inputs are exact in f32, and so are their products); 3xTF32
@@ -195,25 +219,58 @@ FUSION_PROBES = 8
 # sizing: the cluster size the auto probe batch is solved for (more probes
 # than the card's row cap holds, so the cap and not the cluster decides)
 AUTO_PROBES = 1024
+# bf16: the kernel's bf16 leg against the plain scorer on the same bf16
+# operands: f32 sums of exact products in another order, each run of 8 tap
+# chunks in the truncating accumulator. The bf16 rounding itself moves the
+# main-path scores by more than this from the 3xTF32 leg's, so the check
+# also tells the legs apart
+BF16_TOL = 1e-5
+# bf16 features against f32, relative to the activation scale (the JAX
+# package gives ~2e-3 on the TPU, where its bf16 convs keep f32 outputs)
+BF16_FEATURE_TOL = 1e-2
+BF16_BLOCK = 40  # the cache_dtype run: three gallery blocks of the fixture's 120 prints
 
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean time of ``fn`` on the card over ``reps`` runs after one warm-up,
-    from CUDA events (``utils.tracing.device_ms``)."""
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean time of ``fn`` on the card over ``reps`` runs after one warm-up
+    (none without ``warm``), from CUDA events (``utils.tracing.device_ms``)."""
     import torch
 
     from shoeprint_image_retrieval_torch.utils.tracing import device_ms
 
-    return device_ms(fn, reps, torch.device("cuda"))
+    return device_ms(fn, reps, torch.device("cuda"), warm=warm)
 
 
 def spill_bytes(ptxas_lines: list[str]) -> int:
     """Spill stores plus spill loads over every kernel of one report."""
     return sum(int(m) for ln in ptxas_lines for m in re.findall(r"(\d+) bytes spill", ln))
+
+
+def ptxas_entries(report: str) -> list[dict]:
+    """Each compiled entry function of one ``nvcc -Xptxas -v`` report with
+    its registers and spill bytes; the NCC kernel's instantiations also with
+    their stages and leg (``ops/ncc_kernel.LAYOUTS``: float and split are
+    the 3xTF32 leg's patch layouts)."""
+    from shoeprint_image_retrieval_torch.ops.ncc_kernel import LAYOUTS
+
+    entries, cur = [], None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"entry": m.group(1), "registers": None, "spill_bytes": 0}
+            inst = re.search(r"ncc_score_kernelILi(\d+)ELNS_\d+LegE(\d+)E", m.group(1))
+            if inst:
+                cur.update(stages=int(inst.group(1)), layout=LAYOUTS[int(inst.group(2))])
+            entries.append(cur)
+        elif cur is not None and "spill" in ln:
+            cur["spill_bytes"] += spill_bytes([ln])
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", ln)):
+            cur["registers"] = int(m.group(1))
+    return entries
 
 
 def phase_build() -> dict:
@@ -228,11 +285,19 @@ def phase_build() -> dict:
         lines = [ln.strip() for ln in report.splitlines()
                  if "registers" in ln or "spill" in ln or "smem" in ln]
         out["sources"][name] = {"nvcc_s": seconds, "ptxas": lines,
-                                "spill_bytes": spill_bytes(lines)}
+                                "spill_bytes": spill_bytes(lines),
+                                "entries": ptxas_entries(report)}
     out["wall_s"] = time.perf_counter() - t0
     for name in ("ncc_score", "mma_probe"):
         if out["sources"][name]["spill_bytes"]:
             raise AssertionError(f"{name} spills registers: {out['sources'][name]}")
+    # both legs of the NCC kernel were compiled: 3xTF32 in two patch layouts
+    # and bf16, each at 2 and 3 stages
+    legs = {(e.get("layout"), e.get("stages")) for e in out["sources"]["ncc_score"]["entries"]}
+    want = {(lay, st) for lay in ("float", "split", "bf16") for st in (2, 3)}
+    if not want <= legs:
+        raise AssertionError(f"ncc_score: instantiations {sorted(legs, key=str)}, expected "
+                             f"{sorted(want)}")
     return out
 
 
@@ -374,7 +439,11 @@ def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: in
     cache, packed, layout, (uniq, inv), row_truth, c = main_shape_inputs(pb, device, g, c)
     launches0 = ncc_kernel.launch_ncc.launches
     got = ncc_kernel.score_ncc(cache, packed, layout, c, uniq, inv)
-    want = score_direct(cache, packed, layout, c, uniq, inv)
+    # the plain version's one call, timed (it takes ~15 s: no repeats)
+    held = []
+    plain_ms = cuda_ms(lambda: held.append(score_direct(cache, packed, layout, c, uniq, inv)), 1,
+                       warm=False)
+    want = held.pop()
     got_np, want_np = got.cpu().numpy(), want.cpu().numpy()
     err = float(np.abs(got_np - want_np).max())
     if not np.isfinite(got_np).all() or err > TOL:
@@ -393,7 +462,6 @@ def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: in
         raise AssertionError(f"the kernel is not well inside plain TF32's error: {err64}")
 
     kernel_ms = cuda_ms(lambda: ncc_kernel.score_ncc(cache, packed, layout, c, uniq, inv), reps)
-    plain_ms = cuda_ms(lambda: score_direct(cache, packed, layout, c, uniq, inv), reps)
     # yardstick: one cuDNN convolution (TF32 off) computing the channel-summed
     # raw correlation on the same operands; the port never calls it
     hk, wk = packed.kernels.shape[-2:]
@@ -466,14 +534,18 @@ def run_pipeline(config: dict, backend: str, device: str = "cuda", **tpu):
             raise AssertionError(f"{backend} {tpu}: ranks out of range")
         lines.append(s_line({p: cmp(out.ranks.tolist(), p, n_g, n_q) * 100
                              for p in (1, 5, 10, 15, 20)}))
-    # one gallery block a cluster, or one a fusion block
-    if pipe.gallery_blocks_scored != len(outs) * max(1, len(cfg["tpu"]["fusion_blocks"])):
+    # one gallery block a cluster (or tpu.gallery_block's count), each
+    # fusion block apart
+    gb = int(cfg["tpu"]["gallery_block"])
+    blocks = (-(-n_g // gb) if gb else 1) * max(1, len(cfg["tpu"]["fusion_blocks"]))
+    if pipe.gallery_blocks_scored != len(outs) * blocks:
         raise AssertionError(f"{backend} {tpu}: {pipe.gallery_blocks_scored} gallery blocks "
                              f"for {len(outs)} clusters")
     return outs, lines, {
         "backend": backend, "tpu": tpu, "wall_s": wall, "stages_s": pipe.stage_seconds,
         "lookahead_s": pipe.lookahead_seconds, "score_s_per_cluster": score_s,
         "ingest_tiers": dict(pipe.ingest_tiers), "clahe": dict(pipe.clahe_routes),
+        "conv_routes": dict(pipe.conv_routes),
         "gallery_blocks": pipe.gallery_blocks_scored, "cache_bytes": pipe.cache_bytes,
         "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None,
     }
@@ -678,10 +750,12 @@ def timed_launches(library: bool = False):
     real = engine.score_ncc
     pending, records = [], []
 
-    def timed(cache, packed, layout, true_channels, slot_hw=None, slot_map=None, plan=None):
+    def timed(cache, packed, layout, true_channels, slot_hw=None, slot_map=None, plan=None,
+              compute_dtype=torch.float32):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = real(cache, packed, layout, true_channels, slot_hw, slot_map, plan=plan)
+        out = real(cache, packed, layout, true_channels, slot_hw, slot_map, plan=plan,
+                   compute_dtype=compute_dtype)
         end.record()
         moved = sum(t.numel() * t.element_size() for t in (*cache, packed.kernels,
                                                             plan[0].table, out))
@@ -749,9 +823,9 @@ def phase_sizing(device: str = "cuda") -> dict:
     (``benchmarks/kernel_probe``), the
     per-batch variant build (``bench_build``), the per-block cache build
     (``bench_cachebuild``), the engine on maps left on the host
-    (``bench.run(host_maps=True)``), and the sizing the engine picks for
-    ``probe_batch = 0`` at G = 300 and at G = 10,240 with the equal-block
-    split there."""
+    (``bench.run(host_maps=True)``, in f32 and at rest in bf16), and the
+    sizing the engine picks for ``probe_batch = 0`` at G = 300 and at
+    G = 10,240 with the equal-block split there."""
     import torch
 
     from shoeprint_image_retrieval_torch import bench
@@ -765,7 +839,9 @@ def phase_sizing(device: str = "cuda") -> dict:
     out = {"phase": "sizing", "kernel_probe": kernel_probe.run(device=device),
            "bench_build": bench_build.run(device=device),
            "bench_cachebuild": bench_cachebuild.run(device=device),
-           "engine_host_maps": bench.run(device=device, q=PROBES, kernel=False, host_maps=True)}
+           "engine_host_maps": bench.run(device=device, q=PROBES, kernel=False, host_maps=True),
+           "engine_host_maps_cache_bf16": bench.run(device=device, q=PROBES, kernel=False,
+                                                    host_maps=True, cache_bf16=True)}
     # probe_batch = 0 on this card, for a cluster of AUTO_PROBES probes
     w = bench.make_workload(q=1)
     c, hraw, hc = w["gal"].shape[1], w["gal"].shape[-1], w["canvas"]
@@ -1074,6 +1150,149 @@ def phase_parity(tmp: Path, device: str = "cuda", gallery: int = PARITY_GALLERY,
             "wall_s": time.perf_counter() - t0}
 
 
+def phase_bf16(dataset: Path, plain_f32: tuple, extract_f32: dict,
+               device: str = "cuda") -> tuple[dict, int]:
+    """``tpu.precision`` and ``tpu.cache_dtype = "bfloat16"`` on the card.
+
+    (a) One main-path call (PB = 56) through the NCC kernel's bf16 leg
+    (``kernel_probe.probe_call``: its ms, bound at the bf16 rate, plain bf16
+    call and one ``F.conv2d`` on the bf16 operands), held against the plain
+    scorer on the same bf16 operands (within ``BF16_TOL``, true-match ranks
+    identical) and further than ``BF16_TOL`` from the 3xTF32 leg's scores.
+    (b) The fixture with ``precision = "bfloat16"``, plain then
+    kernel, and once more with ``cache_dtype = "bfloat16"``,
+    ``gallery_block`` = ``BF16_BLOCK`` and ``SIR_DEVICE_MAPS_MAX = 0``:
+    kernel and plain ranks and S-lines identical (scores within
+    ``BF16_TOL``), only the bf16 leg launched (counts reset just before
+    each kernel run, read just after), every extraction on the bf16 conv
+    route; the S-lines beside the f32 run's and the per-query ranks that
+    moved. (c) The full-width
+    EfficientNetV2_M at block 6 on one ``bench_extract`` batch in bf16
+    against f32: nonzero and within ``BF16_FEATURE_TOL`` of the activation
+    scale; ``bench_extract`` in bf16 beside ``extract``'s f32 rate.
+    -> (result, the bf16 leg's launches in the fixture's kernel run)"""
+    import numpy as np
+    import torch
+
+    from shoeprint_image_retrieval_torch.benchmarks import bench_extract, kernel_probe
+    from shoeprint_image_retrieval_torch.models.layers import set_conv_precision
+    from shoeprint_image_retrieval_torch.models.registry import get_backbone
+    from shoeprint_image_retrieval_torch.models.weights import build_model
+    from shoeprint_image_retrieval_torch.ops import ncc_kernel
+    from shoeprint_image_retrieval_torch.ops.ncc_direct import row_slots
+    from shoeprint_image_retrieval_torch.ops.preprocess import normalize_batch
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    launch = ncc_kernel.launch_ncc
+
+    def reset_counts():
+        launch.launches = 0
+        launch.leg_launches = dict.fromkeys(ncc_kernel.PRECISIONS, 0)
+
+    # (a) the main-path call
+    cache, packed, layout, slots, row_truth, c = main_shape_inputs(PROBES, device)
+    slot_hw, row_slot = row_slots(packed, layout, *slots)
+    inputs = {"cache": cache, "packed": packed, "layout": layout, "channels": c,
+              "kernel_hw": tuple(int(v) for v in packed.kernels.shape[-2:]),
+              "row_hw": slot_hw[row_slot].cpu().numpy(), "slots": slots}
+    reset_counts()
+    call = kernel_probe.probe_call(inputs, dev, library=True, plain=True, precision="bf16",
+                                   keep=True)
+    call["launches"] = dict(launch.leg_launches)
+    if call["launches"]["bf16"] < 1 or call["launches"]["f32_3xtf32"]:
+        raise AssertionError(f"bf16: the main-path call launched {call['launches']}")
+    got, want = call.pop("out"), call.pop("plain_out")
+    err = call["max_abs_err"]
+    if not bool(torch.isfinite(got).all()) or err > BF16_TOL:
+        raise AssertionError(f"bf16 leg vs plain bf16 at the main-path shapes: max abs err {err}")
+    got_np = got.cpu().numpy()
+    rk, rp = true_match_ranks(got_np, row_truth), true_match_ranks(want.cpu().numpy(), row_truth)
+    if not np.array_equal(rk, rp):
+        raise AssertionError(f"bf16: true-match ranks differ in {int((rk != rp).sum())} rows")
+    f32_leg = ncc_kernel.score_ncc(cache, packed, layout, c, *slots)
+    vs_f32 = float((got - f32_leg).abs().max())
+    if not vs_f32 > BF16_TOL:
+        raise AssertionError(f"bf16: the leg's scores are within {vs_f32} of the 3xTF32 "
+                             f"leg's (<= {BF16_TOL}): its operands were not rounded")
+    rf = true_match_ranks(f32_leg.cpu().numpy(), row_truth)
+    call.update(probes=PROBES, max_abs_diff_vs_3xtf32_leg=vs_f32,
+                scale_3xtf32_leg=float(f32_leg.abs().max()),
+                true_match_ranks_moved_vs_3xtf32_leg=int((rk != rf).sum()))
+    del cache, packed, got, want, f32_leg, inputs
+
+    # (b) the fixture end to end
+    config = fixture_config(dataset)
+    f32_outs, f32_lines, _ = plain_f32
+
+    def moved_ranks(run):
+        return sum(int((o.ranks != f.ranks).sum()) for o, f in zip(run[0], f32_outs))
+
+    fixture = {}
+    for name, tpu in (("precision", {"precision": "bfloat16"}),
+                      ("cache_dtype", {"precision": "bfloat16", "cache_dtype": "bfloat16",
+                                       "gallery_block": BF16_BLOCK})):
+        budget = "0" if name == "cache_dtype" else str(int(2e9))
+        with mock.patch.dict(os.environ, {"SIR_DEVICE_MAPS_MAX": budget}):
+            plain = run_pipeline(config, "direct", device, **tpu)
+            reset_counts()
+            kernel = run_pipeline(config, "auto", device, **tpu)
+            launches = dict(launch.leg_launches)
+        if launches["bf16"] < 1 or launches["f32_3xtf32"]:
+            raise AssertionError(f"bf16 fixture ({name}): kernel launches {launches}")
+        for run in (plain, kernel):
+            if set(run[2]["conv_routes"]) != {"bfloat16:bf16"}:
+                raise AssertionError(f"bf16 fixture ({name}): conv routes "
+                                     f"{run[2]['conv_routes']}")
+        fixture[name] = {"runs": (plain, kernel), "launches": launches,
+                         "scores_max_abs_diff": held_runs(f"bf16 fixture ({name}) kernel vs "
+                                                          "plain", kernel, plain, BF16_TOL)}
+    # the host maps were rounded: the scores moved against maps kept on the card
+    at_rest = max(float(np.abs(a.scores - b.scores).max()) for a, b in zip(
+        fixture["cache_dtype"]["runs"][1][0], fixture["precision"]["runs"][1][0]))
+    if not at_rest > BF16_TOL:
+        raise AssertionError(f"bf16 fixture: cache_dtype moved the scores by {at_rest} "
+                             f"(<= {BF16_TOL}): the host maps were not rounded")
+
+    # (c) extraction
+    t1 = time.perf_counter()
+    spec = get_backbone(bench_extract.MODEL)
+    model = build_model(bench_extract.MODEL, 6, None, dev)
+    u8, valid = bench_extract.make_batch(32, 704)
+    u8d, vd = torch.from_numpy(u8).to(dev), torch.from_numpy(valid).to(dev)
+    with torch.inference_mode():
+        x = normalize_batch(u8d, vd, spec.mean, spec.std)
+        f32_maps = model(x, vd)[0]
+        set_conv_precision(model, "bfloat16")
+        bf16_maps = model(x, vd)[0]
+    feat_scale = float(f32_maps.abs().max())
+    feat_err = float((bf16_maps - f32_maps).abs().max())
+    if not 0.0 < feat_err <= BF16_FEATURE_TOL * feat_scale:
+        raise AssertionError(f"bf16 features vs f32: max abs diff {feat_err} at scale "
+                             f"{feat_scale} (must be nonzero and <= {BF16_FEATURE_TOL} of it)")
+    del model, f32_maps, bf16_maps, x
+    extraction = {"batch": 32, "canvas": 704, "block": 6, "max_abs_diff": feat_err,
+                  "scale": feat_scale, "relative": feat_err / feat_scale,
+                  "bench_extract_bf16": bench_extract.run(device=device, bf16=True),
+                  "bench_extract_f32": {k: extract_f32[k] for k in
+                                        ("device_clahe", "host_clahe", "backbone_ms")},
+                  "wall_s": time.perf_counter() - t1}
+
+    return {"phase": "bf16", "main_shape_call": call,
+            "fixture": {name: {
+                "s_lines": f["runs"][0][1], "s_lines_f32": f32_lines,
+                "clusters": [{"block": o.block, "ranks": o.ranks.tolist()}
+                             for o in f["runs"][0][0]],
+                "per_query_ranks_moved_vs_f32": moved_ranks(f["runs"][1]),
+                "kernel_launches": f["launches"],
+                "scores_max_abs_diff": f["scores_max_abs_diff"],
+                "plain": f["runs"][0][2], "kernel": f["runs"][1][2]}
+                for name, f in fixture.items()},
+            "cache_dtype_scores_max_abs_diff_vs_device_maps": at_rest,
+            "extraction": extraction,
+            "wall_s": time.perf_counter() - t0}, fixture["precision"]["launches"]["bf16"]
+
+
 def phase_mxu_probe(device: str = "cuda") -> tuple[dict, int]:
     """The probe's measurement path, then every leg held against its plain
     version and timed beside it."""
@@ -1242,8 +1461,11 @@ def main() -> int:
         fusion, fusion_launches = phase_fusion(dataset)
         emit(fusion)
         emit(phase_front_end(dataset))
-        emit(phase_extract())
+        extract = phase_extract()
+        emit(extract)
         emit(phase_parity(Path(tmp)))
+        bf16, bf16_launches = phase_bf16(dataset, plain, extract)
+        emit(bf16)
     emit(phase_backbones())
     probe, probe_launches = phase_mxu_probe()
     emit(probe)
@@ -1268,6 +1490,17 @@ def main() -> int:
         "library_ms": kern["library_ms"],
         "launches_fusion": fusion_launches,
         "launches_pruned": pruned_launches,
+        # the 3xTF32 leg is the entry's primary; the bf16 leg's launches are
+        # its fixture run's (tpu.precision = "bfloat16")
+        "legs": {
+            "f32_3xtf32": {"ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
+                           "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
+                           "library_ms": kern["library_ms"],
+                           "max_abs_err": kern["max_abs_err"], "launches": launches},
+            "bf16": {key: bf16["main_shape_call"][key] for key in
+                     ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+                    | {"launches": bf16_launches},
+        },
     }, {
         "name": "mma_probe",
         "route": "cuda",

@@ -12,21 +12,27 @@ the same metric names:
   ``run.toml`` and ``Pipeline._score_cluster`` on device-resident maps, one
   warm-up call and one timed call; with ``host_maps`` (``--host-maps``, the
   JAX bench's ``BENCH_ENGINE_HOST``) on maps left on the host, which the
-  engine moves to the card within the call.
+  engine moves to the card within the call; ``--cache-bf16`` adds
+  ``tpu.cache_dtype = "bfloat16"``, so those host maps rest in bf16 (cast
+  before the clock starts, as the engine casts them before scoring).
 * **Kernel-level mode** (``kernel``): the gallery cache built once, then per
   probe batch ``build_kernels`` + ``score_ncc`` + ``regroup_max``, one
   warm-up pass and one timed pass.
+* ``--bf16`` (the JAX bench's ``BENCH_BF16``): the kernel-level mode scores
+  through the NCC kernel's bf16 leg (``compute_dtype = torch.bfloat16``),
+  and the engine mode runs with ``tpu.precision = "bfloat16"``, which takes
+  the same leg.
 
     python -m shoeprint_image_retrieval_torch.bench [--quick] [--engine | --kernel] [--host-maps]
-        [--device cuda|cpu]
+        [--cache-bf16] [--bf16] [--device cuda|cpu]
 
 Prints one JSON line on stdout (progress goes to stderr): ``metric``,
 ``value``, ``unit``, ``vs_baseline`` (value / 100 probes/s, BASELINE.json's
 north-star target), ``engine`` and ``kernel`` in probes/s, and the device.
 Runs on the card unless ``--device cpu``; ``--quick`` shrinks the workload
 (G = 24, C = 16, Q = 4, PB = 2) for the CPU. The JAX bench's TPU-only or
-unported switches (``BENCH_EPI``, ``BENCH_BF16``, ``SIR_FORCE_SHARDED``)
-are not carried over.
+unported switches (``BENCH_EPI``, ``SIR_FORCE_SHARDED``) are not carried
+over.
 """
 
 from __future__ import annotations
@@ -111,12 +117,14 @@ scales = {scales}
 [tpu]
 ncc_backend = "pallas"
 probe_batch = {pb}
+precision = "{precision}"
 """
 
 
-def engine_pipeline(root: Path, pb: int, device: torch.device):
-    """A ``Pipeline`` over a one-print, one-query dummy dataset: the bench
-    drives its ``_score_cluster`` with its own maps."""
+def engine_pipeline(root: Path, pb: int, device: torch.device, precision: str = "float32"):
+    """A ``Pipeline`` over a one-print, one-query dummy dataset, with
+    ``tpu.precision`` = ``precision``: the bench drives its
+    ``_score_cluster`` with its own maps."""
     from PIL import Image
 
     from .config import load_config
@@ -126,19 +134,25 @@ def engine_pipeline(root: Path, pb: int, device: torch.device):
         (root / sub).mkdir()
         Image.fromarray(np.full((24, 24), 128, np.uint8)).save(root / sub / name)
     cfg = root / "run.toml"
-    cfg.write_text(RUN_TOML.format(root=root, rotations=ROTATIONS, scales=SCALES, pb=pb))
+    cfg.write_text(RUN_TOML.format(root=root, rotations=ROTATIONS, scales=SCALES, pb=pb,
+                                   precision=precision))
     return Pipeline(load_config(cfg), weights_dir=None, verbose=False, device=device)
 
 
 def run_engine_mode(w: dict, qmaps: np.ndarray, device: torch.device,
-                    host_maps: bool = False) -> float:
+                    host_maps: bool = False, bf16: bool = False,
+                    cache_bf16: bool = False) -> float:
     """Probes/s of ``Pipeline._score_cluster`` on device-resident maps, or
-    with ``host_maps`` on maps in host memory."""
+    with ``host_maps`` on maps in host memory; ``bf16`` sets
+    ``tpu.precision = "bfloat16"``, ``cache_bf16`` ``tpu.cache_dtype =
+    "bfloat16"``."""
     with tempfile.TemporaryDirectory(prefix="bench_engine_") as tmp:
-        pipe = engine_pipeline(Path(tmp), w["pb"], device)
+        pipe = engine_pipeline(Path(tmp), w["pb"], device, "bfloat16" if bf16 else "float32")
+        if cache_bf16:
+            pipe.config["tpu"]["cache_dtype"] = "bfloat16"
         where = torch.device("cpu") if host_maps else device
         q_in = torch.from_numpy(qmaps).to(where)
-        g_in = torch.from_numpy(w["gal"]).to(where)
+        g_in = pipe._maps_at_rest(torch.from_numpy(w["gal"]).to(where))
         log(f"engine mode: Pipeline._score_cluster, PB={w['pb']}, {device.type}, "
             f"maps on {where.type}")
         t0 = time.perf_counter()
@@ -155,8 +169,10 @@ def run_engine_mode(w: dict, qmaps: np.ndarray, device: torch.device,
     return pps
 
 
-def run_kernel_mode(w: dict, qmaps: np.ndarray, device: torch.device) -> float:
-    """Probes/s of the per-batch composition on a cache built once."""
+def run_kernel_mode(w: dict, qmaps: np.ndarray, device: torch.device,
+                    bf16: bool = False) -> float:
+    """Probes/s of the per-batch composition on a cache built once; ``bf16``
+    scores through the kernel's bf16 leg."""
     from .ops.ncc_direct import PackedVariants, VariantLayout, build_direct_cache
     from .ops import ncc_kernel
     from .retrieval.engine import (
@@ -164,6 +180,7 @@ def run_kernel_mode(w: dict, qmaps: np.ndarray, device: torch.device) -> float:
 
     q_sizes, pb, hc = w["q_sizes"], w["pb"], w["canvas"]
     n_q, c = len(q_sizes), w["c"]
+    dtype = torch.bfloat16 if bf16 else torch.float32
     t0 = time.perf_counter()
     cache = build_direct_cache(torch.from_numpy(w["gal"]).to(device),
                                torch.from_numpy(w["g_sizes"]).to(device))
@@ -198,7 +215,7 @@ def run_kernel_mode(w: dict, qmaps: np.ndarray, device: torch.device) -> float:
                                         kernel_hw=kernel_hw, include_rots_unscaled=include,
                                         n_scl=plan.n_scl)
                 scores = ncc_kernel.score_ncc(cache, PackedVariants(kernels, wins), layout, c,
-                                              uniq, inv, plan=tiles)
+                                              uniq, inv, plan=tiles, compute_dtype=dtype)
                 rows.append(regroup_max(scores, layout))
         return [r.cpu().numpy() for r in rows]
 
@@ -218,9 +235,11 @@ def run_kernel_mode(w: dict, qmaps: np.ndarray, device: torch.device) -> float:
 
 def run(quick: bool = False, engine: bool = True, kernel: bool = True,
         device: str | torch.device = "cuda", q: int | None = None,
-        host_maps: bool = False) -> dict:
+        host_maps: bool = False, bf16: bool = False, cache_bf16: bool = False) -> dict:
     """Both modes (or one) -> the JSON result; ``q`` overrides the probe
-    count, ``host_maps`` leaves the engine mode's maps on the host."""
+    count, ``host_maps`` leaves the engine mode's maps on the host,
+    ``cache_bf16`` holds them there in bf16 (``--cache-bf16``), ``bf16``
+    scores with bf16 operands (``--bf16``)."""
     if not (engine or kernel):
         raise ValueError("bench: nothing to run (engine and kernel both off)")
     dev = resolve_device(device)
@@ -229,9 +248,9 @@ def run(quick: bool = False, engine: bool = True, kernel: bool = True,
     w = make_workload(quick, q)
     engine_pps = kernel_pps = None
     if engine:
-        engine_pps = run_engine_mode(w, draw_probe_maps(w), dev, host_maps)
+        engine_pps = run_engine_mode(w, draw_probe_maps(w), dev, host_maps, bf16, cache_bf16)
     if kernel:
-        kernel_pps = run_kernel_mode(w, draw_probe_maps(w), dev)
+        kernel_pps = run_kernel_mode(w, draw_probe_maps(w), dev, bf16)
     metric = "probes_per_sec_engine_path" if engine else "probes_per_sec_full_gallery_ncc"
     value = engine_pps if engine else kernel_pps
     result = {"metric": metric, "value": round(value, 3), "unit": "probes/s",
@@ -239,8 +258,10 @@ def run(quick: bool = False, engine: bool = True, kernel: bool = True,
     if engine and kernel:
         result.update(engine=round(engine_pps, 3), kernel=round(kernel_pps, 3))
     result["device"] = name
+    result["precision"] = "bfloat16" if bf16 else "float32"
     if engine:
         result["maps"] = "host" if host_maps else "device"
+        result["cache_dtype"] = "bfloat16" if cache_bf16 else "float32"
     return result
 
 
@@ -252,10 +273,14 @@ def main(argv: list[str] | None = None) -> dict:
     mode.add_argument("--kernel", action="store_true", help="kernel-level composition only")
     ap.add_argument("--host-maps", action="store_true",
                     help="engine mode on maps in host memory (BENCH_ENGINE_HOST)")
+    ap.add_argument("--cache-bf16", action="store_true",
+                    help="engine mode with tpu.cache_dtype = bfloat16 (host maps rest in bf16)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="score with bf16 operands: the kernel's bf16 leg (BENCH_BF16)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     result = run(args.quick, engine=not args.kernel, kernel=not args.engine, device=args.device,
-                 host_maps=args.host_maps)
+                 host_maps=args.host_maps, bf16=args.bf16, cache_bf16=args.cache_bf16)
     print(json.dumps(result), flush=True)
     return result
 

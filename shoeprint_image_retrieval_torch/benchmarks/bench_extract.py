@@ -14,10 +14,13 @@ backbone extraction the engine runs per cluster (``engine._extract``):
 Inputs are seeded random uint8 canvases with valid sizes up to 64 px short
 of the canvas; weights are the seeded init. Device times come from CUDA
 events (mean over ``steps`` calls after a warm-up), host CLAHE from the
-host clock.
+host clock. ``--bf16`` binds ``tpu.precision = "bfloat16"`` on the model
+(``models/layers.set_conv_precision``): its convs on bf16 operands with f32
+accumulation on a card, f32 on the CPU (``conv_route`` says which ran).
 
     python -m shoeprint_image_retrieval_torch.benchmarks.bench_extract \
-        [--batch 32] [--steps 6] [--canvas 704] [--block 6] [--quick] [--device cuda|cpu]
+        [--batch 32] [--steps 6] [--canvas 704] [--block 6] [--bf16] [--quick] \
+        [--device cuda|cpu]
 
 Prints one JSON line. With ``--device cpu`` every time is the CPU's, not a
 device rate; ``--quick`` shrinks the shapes for that.
@@ -34,6 +37,7 @@ import torch
 
 from ..data import native_ingest
 from ..device import resolve_device
+from ..models.layers import conv_route, set_conv_precision
 from ..models.registry import get_backbone
 from ..models.weights import build_model
 from ..ops.clahe import clahe_batched_dynamic
@@ -58,10 +62,12 @@ def make_batch(batch: int, canvas: int, seed: int = 0) -> tuple[np.ndarray, np.n
 
 @torch.inference_mode()
 def run(batch: int = 32, steps: int = 6, canvas: int = 704, block: int = 6,
-        device: str = "cuda") -> dict:
+        device: str = "cuda", bf16: bool = False) -> dict:
     dev = resolve_device(device)
     spec = get_backbone(MODEL)
     model = build_model(MODEL, block, None, dev)
+    precision = "bfloat16" if bf16 else "float32"
+    set_conv_precision(model, precision)
     u8, valid = make_batch(batch, canvas)
     u8d, vd = torch.from_numpy(u8).to(dev), torch.from_numpy(valid).to(dev)
 
@@ -95,6 +101,7 @@ def run(batch: int = 32, steps: int = 6, canvas: int = 704, block: int = 6,
         "backbone_ms": backbone_ms,
         "host_clahe_ms": host_clahe_ms,
         "canvas": canvas, "batch": batch, "block": block, "steps": steps,
+        "precision": precision, "conv_route": conv_route(precision, dev),
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }
 
@@ -105,12 +112,14 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--canvas", type=int, default=704)
     ap.add_argument("--block", type=int, default=6)
+    ap.add_argument("--bf16", action="store_true",
+                    help="tpu.precision = \"bfloat16\": the convs on bf16 operands")
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     shape = QUICK if args.quick else {"batch": args.batch, "steps": args.steps,
                                       "canvas": args.canvas, "block": args.block}
-    print(json.dumps(run(**shape, device=args.device)))
+    print(json.dumps(run(**shape, device=args.device, bf16=args.bf16)))
 
 
 if __name__ == "__main__":

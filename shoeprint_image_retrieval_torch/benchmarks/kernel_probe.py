@@ -13,9 +13,13 @@ FLOP give and the call's share of its bound: the larger of the needed FLOP
 at 3xTF32's peak and every input read once and the output written once at
 the memory rate (:func:`bound`, from the published peaks in
 :data:`PEAK_FLOPS`). On a card it then times the main path's batch (PB =
-56) in each of the kernel's two patch layouts, split and float, in the
-order split, float, float, split. The JAX probe's TPU-only switches
-(``NCC_SKIP``, ``CLASS_CANVAS``, ``EPI``, ``DTYPES``) are not carried over.
+56) in each of the 3xTF32 leg's two patch layouts, split and float, in the
+order split, float, float, split. ``--precision bf16`` runs the sweep
+through the kernel's bf16 leg instead (``tpu.precision = "bfloat16"``):
+its bound is the needed FLOP at the bf16 rate, its plain version and
+library call take bf16 operands, and it has one patch layout. The JAX
+probe's TPU-only switches (``NCC_SKIP``, ``CLASS_CANVAS``, ``EPI``,
+``DTYPES``) are not carried over.
 
 :func:`probe_call` times one call on any inputs (``chip_smoke.py`` uses it
 for the pruned pass-1 call), optionally beside one ``F.conv2d`` of the same
@@ -23,7 +27,7 @@ correlation (the library yardstick; the port never calls it) and one call
 of the plain scorer.
 
     python -m shoeprint_image_retrieval_torch.benchmarks.kernel_probe [--pbs 28 56 ...]
-        [--quick] [--device cuda|cpu]
+        [--precision f32_3xtf32|bf16] [--quick] [--device cuda|cpu]
 
 Prints one JSON line. With ``--device cpu`` the plain scorer runs and every
 time is the CPU's host clock, not a device time; ``--quick`` shrinks the
@@ -92,16 +96,21 @@ def stack_inputs(gal: np.ndarray, g_sizes: np.ndarray, qmaps: np.ndarray, q_size
 
 
 def probe_call(inputs: dict, device: torch.device, library: bool = False,
-               warm: bool = True, plain: bool = False, patch: str = "auto") -> dict:
+               warm: bool = True, plain: bool = False, patch: str = "auto",
+               precision: str = "f32_3xtf32", keep: bool = False) -> dict:
     """Time one ``score_ncc`` call on :func:`stack_inputs`' operands with the
     engine's host tile plan (the plain scorer on the CPU), after one warm-up
     call where ``warm`` (the first call of a process builds the kernel and
     its first launch sets the card up; later shapes need none), in the
-    ``patch`` layout (``ops/ncc_kernel.PATCHES``). With ``library``, one
-    ``F.conv2d`` computing the channel-summed raw correlation of the same
-    operands too; with ``plain``, one call of the plain scorer
-    (``score_direct``): its ms and the largest |kernel - plain|.
-    -> ms, FLOP, bytes and bound."""
+    kernel's ``precision`` leg (``ops/ncc_kernel.PRECISIONS``) and ``patch``
+    layout (``ops/ncc_kernel.PATCHES``). With ``library``, one ``F.conv2d``
+    computing the channel-summed raw correlation of the same operands (in
+    the leg's dtype) too; with ``plain``, one call of the plain scorer
+    (``score_direct``, in the leg's dtype): its ms and the largest |kernel -
+    plain|; with ``keep``, the scores too (``out`` and, with ``plain``,
+    ``plain_out``, tensors for the caller's checks). -> ms, FLOP, bytes and
+    bound at the leg's peak."""
+    dtype = ncc_kernel.DTYPE_OF_LEG[precision]
     cache, packed, layout, c = (inputs[k] for k in ("cache", "packed", "layout", "channels"))
     kernel_hw, row_hw = inputs["kernel_hw"], inputs["row_hw"]
     gvalid = cache.valid_hw.cpu().numpy()
@@ -111,11 +120,12 @@ def probe_call(inputs: dict, device: torch.device, library: bool = False,
         plan = (ncc_kernel.row_plan(row_hw, kernel_hw, tile.rows, device),
                 ncc_kernel.print_plan(gvalid, tile.positions))
         executed = ncc_kernel.executed_flop(plan[0], gvalid, c, kernel_hw, tile)
-        geometry = ncc_kernel.launch_geometry(cache.p0.shape[3], *kernel_hw, *plan, patch)
+        geometry = ncc_kernel.launch_geometry(cache.p0.shape[3], *kernel_hw, *plan, patch,
+                                              precision)
 
     def call():
         return ncc_kernel.score_ncc(cache, packed, layout, c, *inputs["slots"], plan=plan,
-                                    patch=patch)
+                                    patch=patch, compute_dtype=dtype)
 
     holder = []
     ms = device_ms(lambda: holder.append(call()), 1, device, warm=warm)
@@ -129,58 +139,66 @@ def probe_call(inputs: dict, device: torch.device, library: bool = False,
     moved = sum(t.numel() * t.element_size() for t in (*cache, packed.kernels, *inputs["slots"],
                                                         out))
     result = {"rows": n, "prints": g, "channels": c, "canvas": [hb, wb],
-              "kernel_hw": list(kernel_hw), "patch": patch, "geometry": geometry, "ms": ms,
+              "kernel_hw": list(kernel_hw), "precision": precision, "patch": patch,
+              "geometry": geometry, "ms": ms,
               "needed_flop": needed, "executed_flop": executed, "bytes": moved,
-              "tflops": needed / (ms * 1e-3) / 1e12, **bound(needed, moved)}
+              "tflops": needed / (ms * 1e-3) / 1e12, **bound(needed, moved, precision)}
     result["bound_share"] = result["bound_ms"] / ms
     if plain:
         want = []
         result["plain_ms"] = device_ms(
-            lambda: want.append(score_direct(cache, packed, layout, c, *inputs["slots"])), 1,
-            device, warm=False)
-        result["max_abs_err"] = float((out - want.pop()).abs().max())
+            lambda: want.append(score_direct(cache, packed, layout, c, *inputs["slots"],
+                                             compute_dtype=dtype)), 1, device, warm=False)
+        result["max_abs_err"] = float((out - want[0]).abs().max())
+        if keep:
+            result["plain_out"] = want[0]
+    if keep:
+        result["out"] = out
     del out
     if library:
-        result["library_ms"] = library_ms(inputs, device)
+        result["library_ms"] = library_ms(inputs, device, dtype)
     return result
 
 
-def library_ms(inputs: dict, device: torch.device) -> float:
+def library_ms(inputs: dict, device: torch.device, dtype: torch.dtype = torch.float32) -> float:
     """One ``F.conv2d`` (TF32 off) computing the channel-summed raw
-    correlation of :func:`stack_inputs`' operands: every variant row against
-    every print, the yardstick a library gives for the kernel's work; timed
-    after one small call (the library's first use)."""
+    correlation of :func:`stack_inputs`' operands in ``dtype`` (cast before
+    the clock starts): every variant row against every print, the yardstick
+    a library gives for the kernel's work; timed after one small call (the
+    library's first use)."""
     cache, kernels, c = inputs["cache"], inputs["packed"].kernels, inputs["channels"]
     hk, wk = inputs["kernel_hw"]
     lib_in = F.pad(cache.p0[:c].transpose(0, 1),  # the cache pads C to a multiple of 8
-                   (wk // 2, wk - 1 - wk // 2, hk // 2, hk - 1 - hk // 2))
+                   (wk // 2, wk - 1 - wk // 2, hk // 2, hk - 1 - hk // 2)).to(dtype)
+    kernels = kernels.to(dtype)
     with torch.inference_mode():
         F.conv2d(lib_in[:1], kernels[:1])
         return device_ms(lambda: F.conv2d(lib_in, kernels), 1, device, warm=False)
 
 
 def run(pbs=PBS, quick: bool = False, device: str | torch.device = "cuda",
-        layout_pb: int | None = LAYOUT_PB) -> dict:
-    """The sweep over probe batches on one gallery: one probe batch of each
-    size, its first probes drawn from one set. On a card, with
-    ``layout_pb``, the batch of that size once more in each patch layout of
-    the kernel, in the order split, float, float, split (``layouts``)."""
+        layout_pb: int | None = LAYOUT_PB, precision: str = "f32_3xtf32") -> dict:
+    """The sweep over probe batches on one gallery, through the kernel's
+    ``precision`` leg: one probe batch of each size, its first probes drawn
+    from one set. On a card, with ``layout_pb`` and the 3xTF32 leg, the
+    batch of that size once more in each patch layout of the kernel, in the
+    order split, float, float, split (``layouts``)."""
     dev = resolve_device(device)
     w = bench.make_workload(quick, q=max(pbs))
     qmaps = bench.draw_probe_maps(w)
     sweep = []
     for i, pb in enumerate(pbs):
         inputs = stack_inputs(w["gal"], w["g_sizes"], qmaps[:pb], w["q_sizes"][:pb], dev)
-        point = probe_call(inputs, dev, warm=i == 0)
+        point = probe_call(inputs, dev, warm=i == 0, precision=precision)
         point.update(probes=pb, ms_per_probe=point["ms"] / pb,
                      probes_per_s=pb / (point["ms"] * 1e-3))
         sweep.append(point)
         bench.log(f"PB={pb} N={point['rows']}: {point['ms']:.1f} ms, "
                   f"{point['ms_per_probe']:.2f} ms a probe, {point['tflops']:.1f} TFLOP/s")
         del inputs
-    out = {"metric": "ncc_kernel_ms_per_probe", "sweep": sweep,
+    out = {"metric": "ncc_kernel_ms_per_probe", "precision": precision, "sweep": sweep,
            "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
-    if layout_pb and dev.type == "cuda":
+    if layout_pb and dev.type == "cuda" and precision == "f32_3xtf32":
         inputs = stack_inputs(w["gal"], w["g_sizes"], qmaps[:layout_pb],
                               w["q_sizes"][:layout_pb], dev)
         runs = [probe_call(inputs, dev, warm=False, patch=patch)
@@ -197,11 +215,13 @@ def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m shoeprint_image_retrieval_torch.benchmarks.kernel_probe")
     ap.add_argument("--pbs", type=int, nargs="+", default=None,
                     help=f"probe batches of the sweep (default {' '.join(map(str, PBS))})")
+    ap.add_argument("--precision", default="f32_3xtf32", choices=tuple(ncc_kernel.PRECISIONS),
+                    help="the kernel's leg (bf16: tpu.precision = \"bfloat16\")")
     ap.add_argument("--quick", action="store_true", help="small workload (for the CPU)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     pbs = args.pbs or (QUICK_PBS if args.quick else PBS)
-    result = run(pbs, args.quick, args.device)
+    result = run(pbs, args.quick, args.device, precision=args.precision)
     print(json.dumps(result), flush=True)
     return result
 

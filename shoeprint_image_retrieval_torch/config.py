@@ -26,14 +26,22 @@ Same parse as ``shoeprint_image_retrieval_tpu/config.py``: plain TOML, the
   cluster scored once per listed truncation block at its planned scale,
   the score matrices summed before ranking) and ``pruned_scoring`` with
   ``prune_channels`` and ``prune_margin`` (exact true-match ranks from a
-  channel-prefix bound, ``retrieval/pruned.py``; no score matrix);
+  channel-prefix bound, ``retrieval/pruned.py``; no score matrix),
+  ``precision`` (``"float32"``, or ``"bfloat16"``: the backbone convs with
+  bf16 operands and f32 accumulation on a card, plain f32 on the CPU as
+  XLA:CPU computes the JAX package's ``Precision.DEFAULT``; and the direct
+  scorer's correlation on operands rounded to bf16, the NCC kernel's bf16
+  leg on a card; ``fft`` scores in f32 either way) and ``cache_dtype``
+  (``"float32"``, or ``"bfloat16"``: gallery maps at rest on the host, over
+  ``SIR_DEVICE_MAPS_MAX`` or loaded from the gallery feature cache, are
+  held in bf16 while scored; the cache and scoring stay f32);
   ``probe_batch = 0`` means 56 on the CPU and on a card the rows the card
   can take (``ops/ncc_kernel.auto_probe_rows``);
 * read and ignored: ``mesh_shape`` <= 1;
 * refused with ``NotImplementedError`` naming the ROADMAP item that will
-  port them: ``mesh_shape`` > 1 and ``precision``/``cache_dtype`` =
-  ``"bfloat16"``; ``pruned_scoring`` with ``fusion_blocks`` is a
-  ``ValueError`` (pruned mode never builds the matrices fusion sums).
+  port it: ``mesh_shape`` > 1; ``pruned_scoring`` with ``fusion_blocks`` is
+  a ``ValueError`` (pruned mode never builds the matrices fusion sums);
+  other values of ``precision`` and ``cache_dtype`` are a ``LookupError``.
 """
 
 from __future__ import annotations
@@ -105,7 +113,5 @@ def check_supported(config: dict) -> None:
     if int(tpu["gallery_block"]) < 0:
         raise ValueError(f"tpu.gallery_block must be >= 0, got {tpu['gallery_block']!r}")
     for key in ("precision", "cache_dtype"):
-        if tpu[key] == "bfloat16":
-            raise not_ported(f"tpu.{key} = 'bfloat16'", 10, "bf16 precision")
-        if tpu[key] != "float32":
+        if tpu[key] not in ("float32", "bfloat16"):
             raise LookupError(f"Unknown tpu.{key}: {tpu[key]!r}")

@@ -1,4 +1,5 @@
-// Fused NCC scorer for Hopper (sm_90a): a 3xTF32 tensor-core implicit GEMM.
+// Fused NCC scorer for Hopper (sm_90a): a 3xTF32 tensor-core implicit GEMM,
+// with a bf16 leg for tpu.precision = "bfloat16".
 //
 // Replaces the JAX package's Pallas TPU kernel
 // shoeprint_image_retrieval_tpu/ops/pallas/ncc_kernel.py::score_packed_operands
@@ -88,6 +89,32 @@
 //   finalize divides by C.
 // - Only the stack's true channels are looped over, not the cache's
 //   padding channels (zero prints: they add exact zeros).
+// - The bf16 leg (the JAX kernel's compute_dtype = bfloat16: both operands
+//   of the correlation rounded to bf16, f32 accumulation; the window
+//   energies stay f32) runs the same blocks, staging and epilogue on
+//   wgmma.mma_async m64n64k16 bf16. It reads the same f32 operands and
+//   rounds them where the 3xTF32 leg splits them, round-to-nearest-even
+//   (cvt.rn.bf16x2.f32, as torch's and XLA's casts round): the patch once a
+//   channel, into bf16 (a quarter of the split patch's bytes, so one layout
+//   fits every canvas the 3xTF32 leg takes), and each staged tap chunk into
+//   one bf16 plane, K-major with 8-tap core matrices: tap k of row n at
+//   [k / 8][n][k % 8]. A k16 A fragment pairs taps (k, k + 1) of one
+//   position in a register; consecutive taps are neighbouring patch columns
+//   at any alignment, or the last tap of one tap row and the first of the
+//   next, so each element is loaded alone (16 bits) and the pair packed.
+//   A 32-tap chunk is two k16 products against twelve TF32 products.
+//   Products of bf16 values are exact in f32, but the accumulator still
+//   truncates, so runs of kBf16Run chunks (8: 256 taps) share a fragment
+//   and join the channel's sum by f32 adds. At the main-path shapes every
+//   run length up to a whole channel stayed within 1e-5 of the plain
+//   version, the drift growing with the run, and longer runs took a few
+//   per cent less time (PERF.md); a fixed run bounds the drift at any
+//   canvas. Its bound is the needed
+//   FLOP at the bf16 rate, 989 TFLOP/s: ~121 ms at the main-path shapes.
+//   The staging copies, the rounding pass and the barriers weigh ~6x more a
+//   product than in the 3xTF32 leg, and the products do not overlap them.
+//   The tap chunks are the same 32 taps, so the FLOP it executes are the
+//   3xTF32 leg's (ops/ncc_kernel.py::executed_flop).
 //
 // Device scratch: the kernel reads the variant stack in the engine's own
 // (N, C, hk, wk) layout and the cache as it is. Besides the (N, G) int32
@@ -114,6 +141,13 @@ constexpr int kThreads = 512;  // 4 warpgroups, 64 positions x 64 rows each
 constexpr int kSA = kKC + 4;   // staged taps [m][k], stride 36 words: 8 rows x 4 taps hit 32 banks
 constexpr int kEP = kBN + 8;   // einv table row stride: 4 windows' rows on distinct banks
 constexpr int kSmemLimit = 227 * 1024;
+constexpr int kBf16Run = 8;     // the bf16 leg's chunks a fragment (the 3xTF32 legs: 1)
+
+// the kernel's legs: 3xTF32 with the patch staged as floats split where
+// read (kFloat) or split once a channel into (hi, lo) pairs (kSplit), or
+// bf16 with the patch rounded once a channel (kBf16); the values are the
+// layout codes ncc_score_geometry reports
+enum Leg : int { kFloat = 0, kSplit = 1, kBf16 = 2 };
 
 struct Geometry {
   int C, G, N, Hb, Wb, hk, wk;
@@ -157,6 +191,14 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = to_tf32(x - __uint_as_float(hi));  // x - hi is exact in f32
 }
 
+// two floats rounded to bf16 (to nearest, ties to even), `lo` in the low
+// half: the order of a bf16 pair in a wgmma fragment or a K-major row
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
 // d (64 x 64, the warpgroup's accumulator fragment) = a (64 x 8, from
 // registers) * b (8 x 64, K-major in shared memory, described by desc),
 // plus d itself when Acc is 1
@@ -168,6 +210,23 @@ __device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(Acc));
+}
+// the same product in bf16: a (64 x 16, from registers, bf16 pairs) *
+// b (16 x 64, K-major bf16 in shared memory), f32 accumulation
+template <int Acc>
+__device__ __forceinline__ void wgmma_bf16(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -210,29 +269,32 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// 32-bit words of the staged patch: (hi, lo) pairs or plain floats, rounded
-// up to whole 8-byte words (the row offsets after it are 8-byte values)
-size_t patch_words(const Geometry& geo, bool split_patch) {
-  const size_t elems = (size_t)geo.patch_rows * geo.pitch;
-  return split_patch ? 2 * elems : (elems + 1) / 2 * 2;
+// 32-bit words of the staged patch: (hi, lo) pairs, plain floats or bf16,
+// rounded up to whole 8-byte words (the row offsets after it are 8-byte
+// values)
+__host__ __device__ __forceinline__ size_t patch_words(int patch_rows, int pitch, Leg leg) {
+  const size_t elems = (size_t)patch_rows * pitch;
+  return leg == kSplit ? 2 * elems : leg == kFloat ? (elems + 1) / 2 * 2 : (elems + 3) / 4 * 2;
 }
 
-size_t smem_bytes(int stages, bool split_patch, const Geometry& geo) {
-  return 4 * 4 * (size_t)kKC * kBM +                           // split taps (hi, lo) x 2
-         4 * 32 * (size_t)kThreads +                           // channel-sum accumulator
-         4 * patch_words(geo, split_patch) + 8 * kBM +         // patch, row offsets
-         4 * ((size_t)geo.n_windows * kEP +                    // einv table
-              (size_t)stages * kBM * kSA +                     // staged taps
+// 32-bit words of the two tap buffers the products read: (hi, lo) planes,
+// or one bf16 plane
+__host__ __device__ constexpr int tap_words(Leg leg) { return (leg == kBf16 ? 1 : 4) * kKC * kBM; }
+
+size_t smem_bytes(int stages, Leg leg, const Geometry& geo) {
+  return 4 * (size_t)tap_words(leg) +                              // the products' taps x 2
+         4 * 32 * (size_t)kThreads +                               // channel-sum accumulator
+         4 * patch_words(geo.patch_rows, geo.pitch, leg) + 8 * kBM +  // patch, row offsets
+         4 * ((size_t)geo.n_windows * kEP +                        // einv table
+              (size_t)stages * kBM * kSA +                         // staged taps
               2 * (size_t)geo.ktab_len + 2 * kBM + 2 * (size_t)geo.n_windows);
 }
 
 // One block: tile blockIdx.y of kBM sorted rows against kBN positions of one
 // print (blockIdx.x = print * n_chunks + chunk, so the blocks that share a
 // tile's taps run together). Warpgroup wg computes positions
-// [64 wg, 64 wg + 64) of the block against all kBM rows. SplitPatch: the
-// patch is staged as (hi, lo) pairs split once a channel, else as floats
-// split where they are read.
-template <int S, bool SplitPatch>
+// [64 wg, 64 wg + 64) of the block against all kBM rows, in leg L.
+template <int S, Leg L>
 __global__ void __launch_bounds__(kThreads, 1)
 ncc_score_kernel(const float* __restrict__ p0,    // (C_pad, G, Hb, Wb)
                  const float* __restrict__ int1,  // (C_pad, G, Hb+1, Wb+1)
@@ -245,20 +307,22 @@ ncc_score_kernel(const float* __restrict__ p0,    // (C_pad, G, Hb, Wb)
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int PW = geo.pitch, PR = geo.patch_rows, IW = geo.Wb + 1;
   const int U = geo.n_windows;
-  // split taps, K-major in wgmma's canonical no-swizzle form: tap k of row
-  // n at [k / 4][n][k % 4]
-  // (two buffers, alternating by step, so one step's products can still
-  // run while the next step's taps are split)
+  // the products' taps, K-major in wgmma's canonical no-swizzle form: split
+  // (hi, lo) planes with tap k of row n at [k / 4][n][k % 4], or one bf16
+  // plane with it at [k / 8][n][k % 8] (two buffers, alternating by step,
+  // so one step's products can still run while the next step's taps are
+  // split or rounded)
   uint32_t* bsplit = reinterpret_cast<uint32_t*>(smem_raw);
   // the sum over channels, element i of thread tid at [i][tid]: each
   // thread reads and writes only its own 32 words
-  float* accs = reinterpret_cast<float*>(bsplit + 4 * kKC * kBM);
-  // the patch, pitch PW: (hi, lo) pairs, or floats
+  float* accs = reinterpret_cast<float*>(bsplit + tap_words(L));
+  // the patch, pitch PW: (hi, lo) pairs, floats or bf16
   uint32_t* patchw = reinterpret_cast<uint32_t*>(accs + 32 * kThreads);
   uint2* patch = reinterpret_cast<uint2*>(patchw);
   const float* praw = reinterpret_cast<const float*>(patchw);
+  const unsigned short* pbf = reinterpret_cast<const unsigned short*>(patchw);
   long long* rowoff = reinterpret_cast<long long*>(  // row's tap slab
-      patchw + (SplitPatch ? 2 * (size_t)PR * PW : ((size_t)PR * PW + 1) / 2 * 2));
+      patchw + patch_words(PR, PW, L));
   float* etab = reinterpret_cast<float*>(rowoff + kBM);  // einv per (tile window, position)
   float* araw = etab + (size_t)U * kEP;
   int* ktab = reinterpret_cast<int*>(araw + S * kBM * kSA);  // tap -> tap slab offset
@@ -355,8 +419,9 @@ ncc_score_kernel(const float* __restrict__ p0,    // (C_pad, G, Hb, Wb)
   }
 
   // fragment element 4 j + r: position pw0 + gq + 8 (r / 2), row
-  // 8 j + 2 t + (r % 2). part is one chunk's products, which the chunk's
-  // first product overwrites; corr is the channel's sum of its chunks.
+  // 8 j + 2 t + (r % 2). part is one run's products (a chunk's in the
+  // 3xTF32 legs), which the run's first product overwrites; corr is the
+  // channel's sum of its runs.
   float* acc = accs + tid;  // element i at acc[i * kThreads]
   float corr[32], part[32];
 #pragma unroll
@@ -375,36 +440,56 @@ ncc_score_kernel(const float* __restrict__ p0,    // (C_pad, G, Hb, Wb)
     __syncthreads();
     issue(step + S - 1);
     const int c = step / nkc, kc = step - c * nkc, slot = step % S;
-    uint32_t* bhi = bsplit + (step & 1) * 2 * kKC * kBM;
-    uint32_t* blo = bhi + kKC * kBM;
-    // the chunk's taps as (hi, lo) in the products' layout, walked in that
-    // layout's order: a warp writes 32 consecutive words and reads 8 rows
-    // x 4 taps of the staged chunk, whose pitch (36) puts them on 32 banks
+    uint32_t* bhi = bsplit + (step & 1) * (tap_words(L) / 2);
+    uint32_t* blo = bhi + kKC * kBM;  // the 3xTF32 legs' lo plane
     const float* as = araw + slot * kBM * kSA;
-    for (int e = tid; e < kBM * kKC; e += kThreads) {
-      const int m = (e / 4) % kBM, kk = (e / (4 * kBM)) * 4 + e % 4;
-      uint32_t hi, lo;
-      split_tf32(as[m * kSA + kk], hi, lo);
-      bhi[e] = hi;
-      blo[e] = lo;
+    if constexpr (L == kBf16) {
+      // the chunk's taps rounded to bf16 in the products' layout: word e
+      // holds taps (2 p, 2 p + 1) of one 8-tap core row, p = e % 4
+      for (int e = tid; e < kBM * kKC / 2; e += kThreads) {
+        const int m = (e / 4) % kBM, kk = (e / (4 * kBM)) * 8 + 2 * (e % 4);
+        const float2 v = *reinterpret_cast<const float2*>(as + m * kSA + kk);
+        bhi[e] = pack_bf16(v.x, v.y);
+      }
+    } else {
+      // the chunk's taps as (hi, lo) in the products' layout, walked in that
+      // layout's order: a warp writes 32 consecutive words and reads 8 rows
+      // x 4 taps of the staged chunk, whose pitch (36) puts them on 32 banks
+      for (int e = tid; e < kBM * kKC; e += kThreads) {
+        const int m = (e / 4) % kBM, kk = (e / (4 * kBM)) * 4 + e % 4;
+        uint32_t hi, lo;
+        split_tf32(as[m * kSA + kk], hi, lo);
+        bhi[e] = hi;
+        blo[e] = lo;
+      }
     }
     if (kc == 0) {
-      // the channel's patch as (hi, lo) pairs, and its inverse window
-      // energy for every (tile window, position) from the integral images,
-      // read once a channel from device memory (L2: every tile's blocks
-      // read the same print)
+      // the channel's patch as (hi, lo) pairs, floats or bf16, and its
+      // inverse window energy for every (tile window, position) from the
+      // integral images, read once a channel from device memory (L2: every
+      // tile's blocks read the same print)
       const float* pc = p0 + ((size_t)c * geo.G + g) * Hb * Wb;
-#pragma unroll 4
-      for (int e = tid; e < prb * PW; e += kThreads) {
+      const int pelems = prb * PW;
+      auto pval = [&](int e) {
         const int r = e / PW, sx = e - r * PW;
         const int yy = py0 + r, xx = sx - wk / 2;
-        const float v = yy >= 0 && yy < Hb && xx >= 0 && xx < Wb ? pc[yy * Wb + xx] : 0.f;
-        if constexpr (SplitPatch) {
-          uint32_t hi, lo;
-          split_tf32(v, hi, lo);
-          patch[e] = make_uint2(hi, lo);
-        } else {
-          patchw[e] = __float_as_uint(v);
+        return e < pelems && yy >= 0 && yy < Hb && xx >= 0 && xx < Wb ? pc[yy * Wb + xx] : 0.f;
+      };
+      if constexpr (L == kBf16) {
+        // two elements a word; the last word's second half past the patch is 0
+        for (int e = tid; e < (pelems + 1) / 2; e += kThreads)
+          patchw[e] = pack_bf16(pval(2 * e), pval(2 * e + 1));
+      } else {
+#pragma unroll 4
+        for (int e = tid; e < pelems; e += kThreads) {
+          const float v = pval(e);
+          if constexpr (L == kSplit) {
+            uint32_t hi, lo;
+            split_tf32(v, hi, lo);
+            patch[e] = make_uint2(hi, lo);
+          } else {
+            patchw[e] = __float_as_uint(v);
+          }
         }
       }
       const size_t ib = ((size_t)c * geo.G + g) * (Hb + 1) * IW;
@@ -434,8 +519,10 @@ ncc_score_kernel(const float* __restrict__ p0,    // (C_pad, G, Hb, Wb)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
     if (!wg_live) continue;
-    if (kc > 0) {
-      // the previous chunk's products, which ran on beside this step's
+    // chunks a fragment: one in the 3xTF32 legs, kBf16Run in the bf16 leg
+    constexpr int kRun = L == kBf16 ? kBf16Run : 1;
+    if (kc > 0 && kc % kRun == 0) {
+      // the previous run's products, which ran on beside this step's
       // split, join the channel's sum in FP32
       wgmma_wait<0>();
       pin(part);
@@ -444,13 +531,40 @@ ncc_score_kernel(const float* __restrict__ p0,    // (C_pad, G, Hb, Wb)
     }
 
     const int* ko = koff + kc * kKC;
+    if constexpr (L == kBf16) {
+      // two k16 steps a chunk; A double-buffered, so that a k-step's loads
+      // overlap the previous k-step's product
+      uint32_t a[2][4];
+#pragma unroll
+      for (int ks = 0; ks < kKC / 16; ++ks) {
+        const int cur = ks % 2;
+        wgmma_wait<1>();  // the product that read this A buffer is done
+        // a[0] (pos g, taps 2t, 2t + 1), a[1] (pos g + 8, the same taps),
+        // a[2] (pos g, taps 2t + 8, 2t + 9), a[3] (pos g + 8, the same)
+        const int k0 = ko[16 * ks + 2 * t], k1 = ko[16 * ks + 2 * t + 1];
+        const int k2 = ko[16 * ks + 2 * t + 8], k3 = ko[16 * ks + 2 * t + 9];
+        a[cur][0] = pbf[off[0] + k0] | ((uint32_t)pbf[off[0] + k1] << 16);
+        a[cur][1] = pbf[off[1] + k0] | ((uint32_t)pbf[off[1] + k1] << 16);
+        a[cur][2] = pbf[off[0] + k2] | ((uint32_t)pbf[off[0] + k3] << 16);
+        a[cur][3] = pbf[off[1] + k2] | ((uint32_t)pbf[off[1] + k3] << 16);
+        // 16 taps = two 8-tap core matrices along K, kBM * 16 bytes apart
+        const uint64_t desc = smem_desc(bhi + ks * 2 * kBM * 4, kBM * 16, 128);
+        pin(part);
+        wgmma_fence();
+        if (ks == 0 && kc % kRun == 0)  // a run's first product starts its fragment
+          wgmma_bf16<0>(part, a[cur], desc);
+        else
+          wgmma_bf16<1>(part, a[cur], desc);
+        wgmma_commit();
+      }
+    } else {
     // A fragments, double-buffered so that a k-step's loads overlap the
     // previous k-step's products; one buffer with the float patch, whose
     // split where it is read needs the registers
-    constexpr int kABuf = SplitPatch ? 2 : 1;
+    constexpr int kABuf = L == kSplit ? 2 : 1;
     uint32_t ahi[kABuf][4], alo[kABuf][4];
     // the float patch's k-steps are not unrolled: unrolled, they spill
-    constexpr int kKsUnroll = SplitPatch ? kKC / 8 : 1;
+    constexpr int kKsUnroll = L == kSplit ? kKC / 8 : 1;
 #pragma unroll (kKsUnroll)
     for (int ks = 0; ks < kKC / 8; ++ks) {
       const int cur = ks % kABuf;
@@ -458,7 +572,7 @@ ncc_score_kernel(const float* __restrict__ p0,    // (C_pad, G, Hb, Wb)
       const int k0 = ko[8 * ks + t], k1 = ko[8 * ks + t + 4];
       // a0 (pos g, tap t), a1 (pos g + 8, tap t), a2 (pos g, tap t + 4),
       // a3 (pos g + 8, tap t + 4)
-      if constexpr (SplitPatch) {
+      if constexpr (L == kSplit) {
         const uint2 v0 = patch[off[0] + k0], v1 = patch[off[1] + k0];
         const uint2 v2 = patch[off[0] + k1], v3 = patch[off[1] + k1];
         ahi[cur][0] = v0.x; ahi[cur][1] = v1.x; ahi[cur][2] = v2.x; ahi[cur][3] = v3.x;
@@ -480,6 +594,7 @@ ncc_score_kernel(const float* __restrict__ p0,    // (C_pad, G, Hb, Wb)
       wgmma_tf32<1>(part, ahi[cur], dlo);
       wgmma_tf32<1>(part, ahi[cur], dhi);
       wgmma_commit();
+    }
     }
 
     if (kc == nkc - 1) {
@@ -515,16 +630,16 @@ ncc_score_kernel(const float* __restrict__ p0,    // (C_pad, G, Hb, Wb)
     }
 }
 
-template <int S, bool SplitPatch>
+template <int S, Leg L>
 int launch(const float* p0, const float* int1, const float* int2, const float* kern,
            const int* gvalid, const int* plan, int* best, const Geometry& geo, size_t smem,
            cudaStream_t s) {
-  int rc = (int)cudaFuncSetAttribute(ncc_score_kernel<S, SplitPatch>,
+  int rc = (int)cudaFuncSetAttribute(ncc_score_kernel<S, L>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != 0) return rc;
   const dim3 grid(geo.G * geo.n_chunks, (geo.N + kBM - 1) / kBM);
-  ncc_score_kernel<S, SplitPatch><<<grid, kThreads, smem, s>>>(p0, int1, int2, kern, gvalid,
-                                                               plan, best, geo);
+  ncc_score_kernel<S, L><<<grid, kThreads, smem, s>>>(p0, int1, int2, kern, gvalid, plan, best,
+                                                      geo);
   return (int)cudaGetLastError();
 }
 
@@ -553,21 +668,26 @@ void ncc_score_tile(int* bm, int* bn, int* kc, int* threads) {
   *threads = kThreads;
 }
 
-// Stages, patch layout and dynamic shared memory for these sizes: the first
-// that fits the card's limit of 3 stages with the split patch, 2 with it, 3
-// with the float patch, 2 with it. `patch` -1 takes either layout, 0 only
-// the float patch, 1 only the split patch. Returns 0, or a CUDA error code
+// Stages, layout and dynamic shared memory for these sizes. `precision` 0
+// is the 3xTF32 leg: the first that fits the card's limit of 3 stages with
+// the split patch, 2 with it, 3 with the float patch, 2 with it; `patch` -1
+// takes either layout, 0 only the float patch, 1 only the split patch.
+// `precision` 1 is the bf16 leg (its one patch layout; `patch` must be -1):
+// 3 stages, else 2. `layout` is the Leg. Returns 0, or a CUDA error code
 // when none fits.
-int ncc_score_geometry(int Wb, int hk, int wk, int patch_rows, int n_windows, int patch,
-                       int* stages, int* split_patch, long long* smem) {
+int ncc_score_geometry(int Wb, int hk, int wk, int patch_rows, int n_windows, int precision,
+                       int patch, int* stages, int* layout, long long* smem) {
   const Geometry geo = make_geometry(Wb, hk, wk, patch_rows, n_windows);
-  for (int split = 1; split >= 0; --split)
+  if (precision < 0 || precision > 1 || (precision == 1 && patch >= 0))
+    return (int)cudaErrorInvalidValue;
+  const Leg legs[3] = {kSplit, kFloat, kBf16};
+  for (int i = precision ? 2 : 0; i < (precision ? 3 : 2); ++i)
     for (int s = 3; s >= 2; --s) {
-      if (patch >= 0 && split != patch) continue;
-      const size_t bytes = smem_bytes(s, split, geo);
+      if (patch >= 0 && legs[i] != patch) continue;
+      const size_t bytes = smem_bytes(s, legs[i], geo);
       if (bytes <= (size_t)kSmemLimit) {
         *stages = s;
-        *split_patch = split;
+        *layout = legs[i];
         *smem = (long long)bytes;
         return 0;
       }
@@ -581,12 +701,12 @@ int ncc_score_geometry(int Wb, int hk, int wk, int patch_rows, int n_windows, in
 // window index within its tile (N), per tile (i0, h, j0, w, windows) (5 T)
 // and per tile its n_windows distinct windows (h, w), tallest first
 // (2 n_windows T). n_chunks and patch_rows bound every print's
-// position blocks; `patch` as in ncc_score_geometry. Launches on `stream`
-// and returns cudaGetLastError().
+// position blocks; `precision` and `patch` as in ncc_score_geometry.
+// Launches on `stream` and returns cudaGetLastError().
 int ncc_score(const float* p0, const float* int1, const float* int2, const float* kern,
               const int* gvalid, const int* plan, int* best, float* out, int C, int G, int N,
               int Hb, int Wb, int hk, int wk, int n_chunks, int patch_rows,
-              int n_windows, int true_channels, int patch, void* stream) {
+              int n_windows, int true_channels, int precision, int patch, void* stream) {
   if (C <= 0 || G <= 0 || N <= 0 || n_chunks <= 0 || patch_rows <= 0 ||
       n_windows <= 0 || (N + kBM - 1) / kBM > 65535 || (long long)G * n_chunks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -597,10 +717,10 @@ int ncc_score(const float* p0, const float* int1, const float* int2, const float
   geo.Hb = Hb;
   geo.n_chunks = n_chunks;
   geo.true_channels = (float)true_channels;
-  int stages = 0, split = 0;
+  int stages = 0, layout = 0;
   long long smem = 0;
-  int rc = ncc_score_geometry(Wb, hk, wk, patch_rows, n_windows, patch, &stages, &split,
-                              &smem);
+  int rc = ncc_score_geometry(Wb, hk, wk, patch_rows, n_windows, precision, patch, &stages,
+                              &layout, &smem);
   if (rc != 0) return rc;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -609,12 +729,14 @@ int ncc_score(const float* p0, const float* int1, const float* int2, const float
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   const size_t bytes = (size_t)smem;
-  if (split)
-    rc = stages == 3 ? launch<3, true>(p0, int1, int2, kern, gvalid, plan, best, geo, bytes, s)
-                     : launch<2, true>(p0, int1, int2, kern, gvalid, plan, best, geo, bytes, s);
+#define NCC_LAUNCH(S, L) launch<S, L>(p0, int1, int2, kern, gvalid, plan, best, geo, bytes, s)
+  if (layout == kSplit)
+    rc = stages == 3 ? NCC_LAUNCH(3, kSplit) : NCC_LAUNCH(2, kSplit);
+  else if (layout == kFloat)
+    rc = stages == 3 ? NCC_LAUNCH(3, kFloat) : NCC_LAUNCH(2, kFloat);
   else
-    rc = stages == 3 ? launch<3, false>(p0, int1, int2, kern, gvalid, plan, best, geo, bytes, s)
-                     : launch<2, false>(p0, int1, int2, kern, gvalid, plan, best, geo, bytes, s);
+    rc = stages == 3 ? NCC_LAUNCH(3, kBf16) : NCC_LAUNCH(2, kBf16);
+#undef NCC_LAUNCH
   if (rc != 0) return rc;
   finalize<<<(count + 255) / 256, 256, 0, s>>>(best, out, count, geo.true_channels);
   return (int)cudaGetLastError();

@@ -38,11 +38,14 @@ def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, valid_hw: torch.Tensor) -> torch.Te
 class Conv0(nn.Conv2d):
     """7 x 7 stem conv, stride 2, padding 3, no bias."""
 
+    conv_precision = "float32"  # layers.set_conv_precision binds it
+
     def __init__(self, out_ch: int):
         super().__init__(3, out_ch, 7, 2, 3, bias=False)
 
     def forward(self, x: torch.Tensor, valid_hw: torch.Tensor):
-        return L.conv2d(x, self.weight, None, valid_hw, stride=2, padding=3)
+        return L.conv2d(x, self.weight, None, valid_hw, stride=2, padding=3,
+                        precision=self.conv_precision)
 
 
 class Norm(nn.BatchNorm2d):
@@ -69,6 +72,8 @@ class Pool0(nn.Module):
 
 
 class DenseLayer(nn.Module):
+    conv_precision = "float32"  # layers.set_conv_precision binds it
+
     def __init__(self, in_ch: int, growth: int = 32, bn_size: int = 4):
         super().__init__()
         mid = bn_size * growth
@@ -79,9 +84,11 @@ class DenseLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, valid_hw: torch.Tensor):
         y = L.relu(_bn(x, self.norm1, valid_hw))
-        y, _ = L.conv2d(y, self.conv1.weight, None, valid_hw, stride=1, padding=0)
+        y, _ = L.conv2d(y, self.conv1.weight, None, valid_hw, stride=1, padding=0,
+                        precision=self.conv_precision)
         y = L.relu(_bn(y, self.norm2, valid_hw))
-        y, _ = L.conv2d(y, self.conv2.weight, None, valid_hw, stride=1, padding=1)
+        y, _ = L.conv2d(y, self.conv2.weight, None, valid_hw, stride=1, padding=1,
+                        precision=self.conv_precision)
         return torch.cat([x, y], dim=1), valid_hw
 
 
@@ -102,6 +109,7 @@ class DenseBlock(nn.Module):
 
 class Transition(nn.Module):
     pool = (2, 2, 0)  # the average pool after the conv: kernel, stride, padding
+    conv_precision = "float32"  # layers.set_conv_precision binds it
 
     def __init__(self, in_ch: int):
         super().__init__()
@@ -111,7 +119,8 @@ class Transition(nn.Module):
 
     def forward(self, x: torch.Tensor, valid_hw: torch.Tensor):
         x = L.relu(_bn(x, self.norm, valid_hw))
-        x, valid_hw = L.conv2d(x, self.conv.weight, None, valid_hw, stride=1, padding=0)
+        x, valid_hw = L.conv2d(x, self.conv.weight, None, valid_hw, stride=1, padding=0,
+                               precision=self.conv_precision)
         k, s, p = self.pool
         return L.avg_pool(x, valid_hw, kernel=k, stride=s, padding=p)
 

@@ -102,6 +102,8 @@ _V2_CONFIGS = {
 class ConvBNAct(nn.Module):
     """Conv2d + BatchNorm2d + optional SiLU (torchvision Conv2dNormActivation)."""
 
+    conv_precision = "float32"  # layers.set_conv_precision binds it
+
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int,
                  groups: int, act: bool, bn_eps: float):
         super().__init__()
@@ -117,7 +119,8 @@ class ConvBNAct(nn.Module):
     def forward(self, x: torch.Tensor, valid_hw: torch.Tensor):
         conv, bn = self._modules["0"], self._modules["1"]
         x, valid_hw = L.conv2d(x, conv.weight, None, valid_hw, stride=self.stride,
-                               padding=self.padding, groups=self.groups)
+                               padding=self.padding, groups=self.groups,
+                               precision=self.conv_precision)
         x = L.batchnorm(x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
                         valid_hw, self.bn_eps)
         if self.act:
@@ -205,6 +208,8 @@ class Features(nn.Module):
     ``names`` gives torchvision's names (DenseNet's ``conv0``,
     ``denseblock1``, ...). Truncation is positional either way.
     """
+
+    conv_precision = "float32"  # layers.set_conv_precision binds it
 
     def __init__(self, children: Sequence[nn.Module], out_channels: Sequence[int],
                  names: Sequence[str] | None = None):

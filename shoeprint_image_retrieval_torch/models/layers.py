@@ -24,6 +24,23 @@ through the backbone as one NCHW batch, with each sample's valid size
 The port of ``shoeprint_image_retrieval_tpu/models/layers.py``: convs are
 ``F.conv2d`` with torch-style symmetric padding, in full float32 (TF32 is
 off, ``device.py``).
+
+``tpu.precision = "bfloat16"`` (the JAX package's ``Precision.DEFAULT`` for
+its backbone convs) reaches :func:`conv2d` only, through the ``precision``
+each conv-holding module carries (:func:`set_conv_precision`; the engine
+binds it on the model objects it builds, so every thread that runs them,
+the cluster lookahead's included, sees it). :func:`conv_route` says what
+serves it:
+
+* on a card (``"bf16"``): the operands go to bf16, cuDNN runs the conv with
+  f32 accumulation into a bf16 output (its output type, one rounding more
+  than the TPU's DEFAULT, which keeps f32 outputs), and the result comes
+  back to f32 before bias, batch norm, activation and remask;
+* on the CPU (``"f32"``): plain f32, which is what the JAX package computes
+  there: XLA:CPU runs a conv at ``Precision.DEFAULT`` in f32, equal to
+  ``HIGHEST``.
+
+The squeeze-excitation 1 x 1 convs do not read it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -49,6 +66,37 @@ def remask(x: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
     return x * valid_mask(x, valid_hw)
 
 
+PRECISIONS = ("float32", "bfloat16")
+
+
+def conv_route(precision: str, device: torch.device) -> str:
+    """The arithmetic :func:`conv2d` runs for ``precision`` on ``device``:
+    ``"bf16"`` (bf16 operands, f32 accumulation) for ``"bfloat16"`` on a
+    card, else ``"f32"``."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown conv precision {precision!r}, expected one of {PRECISIONS}")
+    return "bf16" if precision == "bfloat16" and device.type == "cuda" else "f32"
+
+
+def set_conv_precision(model: torch.nn.Module, precision: str) -> None:
+    """Bind ``precision`` on every module of ``model`` that declares a
+    ``conv_precision``: those whose convs read it, and the backbone itself
+    (``Features``), which reports it."""
+    conv_route(precision, torch.device("cpu"))  # validates the name
+    for module in model.modules():
+        if hasattr(module, "conv_precision"):
+            module.conv_precision = precision
+
+
+def bf16_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, *,
+              stride: int = 1, padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """The ``"bf16"`` route of :func:`conv2d` on any device: ``F.conv2d`` of
+    the operands in bf16, back in ``x``'s type, then the bias."""
+    y = F.conv2d(x.to(torch.bfloat16), weight.to(torch.bfloat16), None, stride=stride,
+                 padding=padding, groups=groups).to(x.dtype)
+    return y if bias is None else y + bias[None, :, None, None]
+
+
 def conv2d(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -58,9 +106,14 @@ def conv2d(
     stride: int = 1,
     padding: int = 0,
     groups: int = 1,
+    precision: str = "float32",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """torch-semantics Conv2d on a masked batch. Returns (y, new_valid_hw)."""
-    y = F.conv2d(x, weight, bias, stride=stride, padding=padding, groups=groups)
+    """torch-semantics Conv2d on a masked batch. Returns (y, new_valid_hw).
+    ``precision`` as in :func:`conv_route`."""
+    if conv_route(precision, x.device) == "bf16":
+        y = bf16_conv(x, weight, bias, stride=stride, padding=padding, groups=groups)
+    else:
+        y = F.conv2d(x, weight, bias, stride=stride, padding=padding, groups=groups)
     new_valid = conv_out_size(valid_hw, weight.shape[-1], stride, padding)
     return remask(y, new_valid), new_valid
 

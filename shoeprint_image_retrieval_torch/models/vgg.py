@@ -32,11 +32,14 @@ _CFGS = {
 class Conv(nn.Conv2d):
     """3 x 3 conv with bias, stride 1, padding 1."""
 
+    conv_precision = "float32"  # layers.set_conv_precision binds it
+
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__(in_ch, out_ch, 3, 1, 1)
 
     def forward(self, x: torch.Tensor, valid_hw: torch.Tensor):
-        return L.conv2d(x, self.weight, self.bias, valid_hw, stride=1, padding=1)
+        return L.conv2d(x, self.weight, self.bias, valid_hw, stride=1, padding=1,
+                        precision=self.conv_precision)
 
 
 class BatchNorm(nn.BatchNorm2d):

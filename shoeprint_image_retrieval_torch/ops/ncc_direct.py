@@ -14,7 +14,13 @@ The port of ``shoeprint_image_retrieval_tpu/ops/ncc_direct.py``:
   of every variant row with every print, scaled by the channel's inverse
   window energy (computed once per distinct window size), summed over
   channels, masked max per print, divided by C. The CPU path and the
-  yardstick the kernel is held against on the card.
+  yardstick the kernel is held against on the card. With ``compute_dtype =
+  torch.bfloat16`` (``tpu.precision = "bfloat16"``) both operands of the
+  correlation, the demeaned prints and the folded variants, are rounded to
+  bf16 (to nearest, ties to even) and correlated in f32, as the JAX
+  package's ``score_direct(compute_dtype=jnp.bfloat16)``; products of bf16
+  values are exact in f32, so only the sums' order differs. The window
+  energies stay f32, from the f32 integral images.
 
 Zero-energy / zero-template conventions (non-finite -> 0, reference
 similarity.py:65-71) come from ``where`` masks on the folded template and
@@ -221,13 +227,23 @@ def score_direct(
     true_channels: int,
     slot_hw: torch.Tensor | None = None,
     slot_map: torch.Tensor | None = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Score every variant row against every print -> (N, G) f32.
 
     Score = max over each print's valid "same" window of the channel-summed
     normalised correlation, divided by C (reference similarity.py:106-108).
-    The plain version of ``ops/ncc_kernel.score_ncc``'s CUDA kernel.
+    The plain version of ``ops/ncc_kernel.score_ncc``'s CUDA kernel;
+    ``compute_dtype`` float32, or bfloat16 for operands rounded to bf16
+    (one channel at a time, so the rounded copies stay small).
     """
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"score_direct: compute_dtype {compute_dtype} is neither float32 nor "
+                         "bfloat16")
+
+    def operand(t: torch.Tensor) -> torch.Tensor:
+        return t if compute_dtype == torch.float32 else t.to(compute_dtype).to(t.dtype)
+
     c_pad, g, hb, wb = cache.p0.shape
     kernels = packed.kernels
     n, c = kernels.shape[:2]
@@ -238,8 +254,8 @@ def score_direct(
     pad = (wk // 2, wk - 1 - wk // 2, hk // 2, hk - 1 - hk // 2)
     acc = torch.zeros((n, g, hb, wb), dtype=cache.p0.dtype, device=cache.p0.device)
     for ci in range(c_pad):
-        p_pad = F.pad(cache.p0[ci][:, None], pad)  # (G, 1, Hb+hk-1, Wb+wk-1)
-        corr = F.conv2d(p_pad, kernels[:, ci][:, None])  # (G, N, Hb, Wb)
+        p_pad = F.pad(operand(cache.p0[ci])[:, None], pad)  # (G, 1, Hb+hk-1, Wb+wk-1)
+        corr = F.conv2d(p_pad, operand(kernels[:, ci])[:, None])  # (G, N, Hb, Wb)
         einv = inv_window_energy(cache.int1[ci], cache.int2[ci], slots)  # (U, G, Hb, Wb)
         acc += corr.transpose(0, 1) * einv[row_slot]
     v = cache.valid_hw.to(acc.device)

@@ -7,9 +7,15 @@ meaning and is not carried over; the kernel reads the cache in its natural
 channel-major layout and the variant stack in the engine's (N, C, hk, wk)
 layout.
 
-The kernel is a 3xTF32 tensor-core implicit GEMM over tiles of variant
-rows; its block tile lives in the CUDA source alone and is read from the
-built library (:func:`kernel_tile`). The tile plan is made on the host in
+The kernel is a tensor-core implicit GEMM over tiles of variant rows, in
+two legs (:data:`PRECISIONS`): 3xTF32, the f32 product and the default, and
+bf16 for ``tpu.precision = "bfloat16"`` (the JAX kernel's ``compute_dtype =
+bfloat16``: both operands of the correlation rounded to bf16, f32
+accumulation, f32 window energies). Both legs read the same f32 operands
+and round or split them as they stage them, so the memory models of a
+scoring call (:func:`probe_row_bytes`, :func:`gallery_block_bytes_per_print`)
+hold for both. Its block tile lives in the CUDA source alone and is read
+from the built library (:func:`kernel_tile`). The tile plan is made on the host in
 two halves: :func:`row_plan` (once per variant batch) orders the rows by
 post-crop window and gives each tile the centred tap rectangle that holds
 every nonzero tap of its rows, as the JAX package's ``derive_class_taps``
@@ -20,8 +26,9 @@ engine's row order, so callers see the same (N, G) matrix.
 model of its blocks.
 
 :func:`score_ncc` takes the plain version (``ops/ncc_direct.score_direct``)
-only for tensors on the CPU. For CUDA tensors it launches the kernel or
-raises; it never falls back.
+only for tensors on the CPU, in the same compute dtype. For CUDA tensors
+it launches the kernel's leg for that dtype or raises; it never falls back,
+neither to the plain version nor from one leg to the other.
 """
 
 from __future__ import annotations
@@ -46,10 +53,19 @@ from .ncc_direct import (
 
 SOURCE = "shoeprint_image_retrieval_torch/csrc/ncc_score.cu"
 REPLACES = "shoeprint_image_retrieval_tpu/ops/pallas/ncc_kernel.py:963"
-ROUTE = "wgmma m64n64k8 3xTF32 (A from registers)"
-# the patch layouts a caller may ask for: the kernel's own choice (the split
-# patch where it fits, else the float patch), or one of them only
+# the kernel's legs: their codes in the C interface and their routes
+PRECISIONS = {"f32_3xtf32": 0, "bf16": 1}
+ROUTE = {"f32_3xtf32": "wgmma m64n64k8 3xTF32 (A from registers)",
+         "bf16": "wgmma m64n64k16 bf16, f32 accumulation (A from registers)"}
+# the compute dtype of a scoring call -> the leg that serves it, and back
+LEG_OF_DTYPE = {torch.float32: "f32_3xtf32", torch.bfloat16: "bf16"}
+DTYPE_OF_LEG = {leg: dtype for dtype, leg in LEG_OF_DTYPE.items()}
+# the 3xTF32 leg's patch layouts a caller may ask for: the kernel's own
+# choice (the split patch where it fits, else the float patch), or one of
+# them only; the bf16 leg has one layout, "auto"
 PATCHES = {"auto": -1, "float": 0, "split": 1}
+# the layout codes ncc_score_geometry reports
+LAYOUTS = ("float", "split", "bf16")
 
 
 class Tile(NamedTuple):
@@ -66,9 +82,9 @@ def _library() -> ctypes.CDLL:
     """The kernel library, built at first use, with its C signatures bound."""
     lib = build.load("ncc_score")
     ptr, cint = ctypes.c_void_p, ctypes.c_int
-    lib.ncc_score.argtypes = [ptr] * 8 + [cint] * 12 + [ptr]
+    lib.ncc_score.argtypes = [ptr] * 8 + [cint] * 13 + [ptr]
     lib.ncc_score.restype = cint
-    lib.ncc_score_geometry.argtypes = [cint] * 6 + [
+    lib.ncc_score_geometry.argtypes = [cint] * 7 + [
         ctypes.POINTER(cint), ctypes.POINTER(cint), ctypes.POINTER(ctypes.c_longlong)]
     lib.ncc_score_geometry.restype = cint
     lib.ncc_score_tile.argtypes = [ctypes.POINTER(cint)] * 4
@@ -210,7 +226,10 @@ def executed_flop(rows: RowPlan, gvalid: np.ndarray, channels: int,
     block's taps are the tile's rectangle clipped to the tap rows and
     columns that reach the print's valid region from one of its positions,
     as the kernel clips them. A 3xTF32 product counts once (its three
-    tensor-core products are one f32 product)."""
+    tensor-core products are one f32 product). Both legs stage the same
+    32-tap chunks (the bf16 leg as two k16 steps, the 3xTF32 leg as four
+    k8 steps; a block's taps run on across tap rows, so only its last chunk
+    is padded), so the count holds for both."""
     hk, wk = (int(v) for v in kernel_hw)
     gv = np.asarray(gvalid, np.int64).reshape(-1, 2)
     first, last, live = _position_chunks(gv, tile.positions)
@@ -262,6 +281,7 @@ def launch_ncc(
     prints: PrintPlan,
     true_channels: int,
     patch: str = "auto",
+    precision: str = "f32_3xtf32",
 ) -> torch.Tensor:
     """Run the kernel on operands already in its layout -> (N, G) f32.
 
@@ -271,9 +291,11 @@ def launch_ncc(
     rows' windows with the kernel's tile, its table on that device;
     ``prints`` is :func:`print_plan` of these ``gvalid``. ``patch`` is a
     key of :data:`PATCHES` (a layout other than ``"auto"`` is for measuring
-    one against the other). Launches on the current stream without
+    one against the other; the 3xTF32 leg's only). ``precision`` is a key
+    of :data:`PRECISIONS`: the leg. Launches on the current stream without
     synchronising.
     """
+    _check_leg(precision, patch)
     c_pad, g, hb, wb = p0.shape
     n, c, hk, wk = kern.shape
     expect = {
@@ -310,35 +332,52 @@ def launch_ncc(
             p0.data_ptr(), int1.data_ptr(), int2.data_ptr(), kern.data_ptr(),
             gvalid.data_ptr(), rows.table.data_ptr(), best.data_ptr(), out.data_ptr(),
             c, g, n, hb, wb, hk, wk, prints.n_chunks, patch_rows(prints, hk),
-            rows.windows.shape[1], int(true_channels), PATCHES[patch], stream,
+            rows.windows.shape[1], int(true_channels), PRECISIONS[precision], PATCHES[patch],
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"ncc_score kernel launch failed: {lib.ncc_error_string(rc).decode()} "
                            f"({rc}) at Wb={wb} hk={hk} wk={wk}, {patch_rows(prints, hk)} patch "
-                           f"rows, {rows.windows.shape[1]} windows a tile, {patch} patch")
+                           f"rows, {rows.windows.shape[1]} windows a tile, {precision} leg, "
+                           f"{patch} patch")
     launch_ncc.launches += 1
+    launch_ncc.leg_launches[precision] += 1
     return out
 
 
-launch_ncc.launches = 0  # kernel launches since the caller last reset it
+# kernel launches since the caller last reset them: in all, and by leg
+launch_ncc.launches = 0
+launch_ncc.leg_launches = dict.fromkeys(PRECISIONS, 0)
+
+
+def _check_leg(precision: str, patch: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"score_ncc: unknown precision {precision!r}, expected one of "
+                         f"{sorted(PRECISIONS)}")
+    if patch not in PATCHES or (precision == "bf16" and patch != "auto"):
+        raise ValueError(f"score_ncc: patch {patch!r} is not a layout of the {precision} leg")
 
 
 def launch_geometry(wb: int, hk: int, wk: int, rows: RowPlan, prints: PrintPlan,
-                    patch: str = "auto") -> dict:
-    """The kernel's block shape, stages, patch layout (``split`` (hi, lo)
-    pairs, or ``float`` split where read, for canvases whose split patch
-    does not fit) and shared memory for these sizes and this plan (from the
-    library itself, so the report matches what runs)."""
-    stages, split, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+                    patch: str = "auto", precision: str = "f32_3xtf32") -> dict:
+    """The kernel's leg, block shape, stages, patch layout (the 3xTF32
+    leg's ``split`` (hi, lo) pairs, or ``float`` split where read, for
+    canvases whose split patch does not fit; the bf16 leg's ``bf16``) and
+    shared memory for these sizes and this plan (from the library itself,
+    so the report matches what runs)."""
+    _check_leg(precision, patch)
+    stages, layout, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
     rc = _library().ncc_score_geometry(wb, hk, wk, patch_rows(prints, hk), rows.windows.shape[1],
-                                       PATCHES[patch], ctypes.byref(stages), ctypes.byref(split),
+                                       PRECISIONS[precision], PATCHES[patch],
+                                       ctypes.byref(stages), ctypes.byref(layout),
                                        ctypes.byref(smem))
     if rc != 0:
-        raise RuntimeError(f"no launch geometry for Wb={wb} hk={hk} wk={wk} ({patch} patch)")
+        raise RuntimeError(f"no launch geometry for Wb={wb} hk={hk} wk={wk} ({precision} leg, "
+                           f"{patch} patch)")
     tile = kernel_tile()
-    return {"route": ROUTE, "rows_per_block": tile.rows, "positions_per_block": tile.positions,
-            "taps_per_stage": tile.taps, "threads": tile.threads, "stages": stages.value,
-            "patch": "split" if split.value else "float",
+    return {"leg": precision, "route": ROUTE[precision], "rows_per_block": tile.rows,
+            "positions_per_block": tile.positions, "taps_per_stage": tile.taps,
+            "threads": tile.threads, "stages": stages.value, "patch": LAYOUTS[layout.value],
             "smem_bytes": smem.value}
 
 
@@ -445,18 +484,24 @@ def score_ncc(
     slot_map: torch.Tensor | None = None,
     plan: tuple[RowPlan, PrintPlan] | None = None,
     patch: str = "auto",
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Fused NCC scores (N, G) f32, the same quantity as ``score_direct``.
 
     CPU tensors go through the plain version; CUDA tensors through the
-    kernel. ``plan`` is the tile plan the caller made on the host
-    (:func:`row_plan` of the rows' windows, :func:`print_plan` of the
-    cache's valid sizes); without it the plan is made here from copies of
-    the windows and valid sizes brought to the host, which waits for the
-    device. ``patch`` as in :func:`launch_ncc`.
+    kernel's leg for ``compute_dtype`` (:data:`LEG_OF_DTYPE`: float32 the
+    3xTF32 leg, bfloat16 the bf16 leg). ``plan`` is the tile plan the
+    caller made on the host (:func:`row_plan` of the rows' windows,
+    :func:`print_plan` of the cache's valid sizes); without it the plan is
+    made here from copies of the windows and valid sizes brought to the
+    host, which waits for the device. ``patch`` as in :func:`launch_ncc`.
     """
+    if compute_dtype not in LEG_OF_DTYPE:
+        raise ValueError(f"score_ncc: compute_dtype {compute_dtype} is neither float32 nor "
+                         "bfloat16")
     if cache.p0.device.type == "cpu":
-        return score_direct(cache, packed, layout, true_channels, slot_hw, slot_map)
+        return score_direct(cache, packed, layout, true_channels, slot_hw, slot_map,
+                            compute_dtype=compute_dtype)
     gvalid = cache.valid_hw.to(torch.int32).contiguous()
     if plan is None:
         slots, row_slot = row_slots(packed, layout, slot_hw, slot_map)
@@ -465,4 +510,4 @@ def score_ncc(
                          cache.p0.device),
                 print_plan(gvalid.cpu().numpy(), tile.positions))
     return launch_ncc(cache.p0, cache.int1, cache.int2, packed.kernels.contiguous(), gvalid,
-                      *plan, true_channels, patch)
+                      *plan, true_channels, patch, LEG_OF_DTYPE[compute_dtype])

@@ -32,7 +32,13 @@ retrieval/engine.py`` (reference run.py:17-34 + similarity.py:129-375):
   :meth:`Pipeline._score_cluster_fft`);
 * with ``tpu.fusion_blocks``, each cluster scored once per listed block at
   its planned scale and the matrices summed; with ``tpu.pruned_scoring``,
-  exact ranks from a channel-prefix bound (``retrieval/pruned.py``).
+  exact ranks from a channel-prefix bound (``retrieval/pruned.py``);
+* with ``tpu.precision = "bfloat16"``, the backbone convs on bf16 operands
+  (``models/layers.conv_route``, bound on the models the pipeline builds)
+  and the direct scorer's correlation on operands rounded to bf16 (the NCC
+  kernel's bf16 leg on a card); with ``tpu.cache_dtype = "bfloat16"``, the
+  gallery maps at rest on the host held in bf16 and widened on the device a
+  gallery block at a time.
 
 Not carried over (ROADMAP.md, 'Still to port'): the TPU sizing helpers and
 the mesh.
@@ -61,6 +67,7 @@ from ..data.loader import canvas_bucket, load_images, pack_canvas
 from ..data.planner import PlannerConfig, plan_clusters, read_header_sizes
 from ..device import free_bytes, resolve_device
 from ..metrics import ranks_from_scores
+from ..models.layers import conv_route, set_conv_precision
 from ..models.registry import get_backbone
 from ..models.weights import build_model
 from ..ops.boxsum import EDGE_CROP
@@ -112,9 +119,11 @@ def _device_maps_budget() -> int:
 
     Under it a set's maps stay on the device from extraction into scoring;
     above it (galleries too large for the card) each chunk's maps go to
-    pinned host memory and the scorer moves them back a gallery block at a
-    time. ``SIR_DEVICE_MAPS_MAX`` overrides the 2 GB default (the JAX
-    engine's ``_device_maps_budget``).
+    host memory, pinned on a card, and the scorer moves them back a gallery
+    block at a time. On the CPU too maps over the budget are at rest on the
+    host, as NumPy arrays (the JAX engine's host arrays), which is what
+    ``tpu.cache_dtype`` reads. ``SIR_DEVICE_MAPS_MAX`` overrides the 2 GB
+    default (the JAX engine's ``_device_maps_budget``).
     """
     return int(os.environ.get("SIR_DEVICE_MAPS_MAX", str(int(2e9))))
 
@@ -339,8 +348,11 @@ class Pipeline:
     served each file set), ``clahe_routes`` (``host`` or ``device``, once per
     cluster whose features were extracted), ``gallery_blocks_scored`` and
     ``cache_bytes`` (each scored block's scoring cache, direct or FFT),
-    ``probe_batches`` (the probes per call of each direct scoring call) and
-    ``prune_stats`` (``pruned_ranks``' statistics, once per pruned cluster).
+    ``probe_batches`` (the probes per call of each direct scoring call),
+    ``prune_stats`` (``pruned_ranks``' statistics, once per pruned cluster)
+    and ``conv_routes`` (once per extracted set, on whichever thread:
+    ``"{precision}:{route}"``, the models' bound ``tpu.precision`` and the
+    conv arithmetic that served it, ``models/layers.conv_route``).
 
     Stage seconds are kept per thread. The calling thread's stages go into
     ``stage_seconds``; each ends with a device-wide synchronise, so a stage
@@ -371,6 +383,7 @@ class Pipeline:
         self.lookahead_seconds: dict[str, float] = {}
         self.ingest_tiers: Counter = Counter()
         self.clahe_routes: Counter = Counter()
+        self.conv_routes: Counter = Counter()
         self.gallery_blocks_scored = 0  # gallery blocks scored, over all clusters
         self.cache_bytes: list[int] = []  # each scored gallery block's scoring cache
         self.probe_batches: list[int] = []  # probes per call, each direct scoring call
@@ -385,7 +398,9 @@ class Pipeline:
                 and tpu["ncc_backend"] not in ("direct", "fft")):
             # the only thing the port compiles is its kernels, at first use
             # (ops/build.py): build the NCC kernel while ingest and
-            # extraction run; the first scoring call joins this thread
+            # extraction run; the first scoring call joins this thread. One
+            # library holds both legs, so this builds the one tpu.precision
+            # takes
             self._prewarm = threading.Thread(target=self._prewarm_build, daemon=True,
                                              name="shoeprint-prewarm")
             self._prewarm.start()
@@ -440,10 +455,16 @@ class Pipeline:
             raise RuntimeError("the NCC kernel's build (tpu.prewarm) failed") from err
 
     def _model_for_block(self, block: int) -> torch.nn.Module:
+        """The truncated backbone for ``block``, built once, with
+        ``tpu.precision`` bound on its conv modules: the binding lives on the
+        model objects, so the lookahead thread that runs them sees it too
+        (as the JAX engine binds it per pipeline inside its extraction
+        step)."""
         if block not in self._models:
-            self._models[block] = build_model(
-                self.config["model"]["type"], block, self.weights_dir, self.device
-            )
+            model = build_model(self.config["model"]["type"], block, self.weights_dir,
+                                self.device)
+            set_conv_precision(model, self.config["tpu"]["precision"])
+            self._models[block] = model
         return self._models[block]
 
     def _host_clahe(self, images: Sequence[np.ndarray]) -> list[np.ndarray] | None:
@@ -497,8 +518,8 @@ class Pipeline:
         return lab_u8_to_rgb(torch.cat([l_eq[..., None], lab[..., 1:]], dim=-1))
 
     def _to_host(self, y: torch.Tensor) -> torch.Tensor:
-        """A copy of ``y`` in pinned host memory."""
-        host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+        """A copy of ``y`` in host memory, pinned on a card."""
+        host = torch.empty(y.shape, dtype=y.dtype, pin_memory=self.device.type == "cuda")
         host.copy_(y)
         return host
 
@@ -513,17 +534,23 @@ class Pipeline:
         chunk is issued before it waits; the pull waits for that chunk's
         work, which bounds how far the host runs ahead. The set's maps stay
         on the device when all of them fit :func:`_device_maps_budget`,
-        else each chunk's go to pinned host memory.
+        else each chunk's go to the host: pinned tensors on a card, NumPy
+        arrays on the CPU, which tells them from maps kept on the device.
         """
         dev = self.device
         outs, vouts, pending = [], [], []
         keep_device = None
+        self.conv_routes[f"{model.conv_precision}:{conv_route(model.conv_precision, dev)}"] += 1
 
         def drain(limit: int) -> None:
             while len(pending) > limit:
                 y, vy, n = pending.pop(0)
                 vouts.append(vy[:n].cpu().numpy().astype(np.int32))
-                outs.append(y[:n] if keep_device else self._to_host(y[:n]))
+                if keep_device:
+                    outs.append(y[:n])
+                else:
+                    host = self._to_host(y[:n])
+                    outs.append(host if dev.type == "cuda" else host.numpy())
 
         for batch, valid, n in chunks:
             u8 = torch.as_tensor(batch).to(dev, non_blocking=True)
@@ -534,11 +561,15 @@ class Pipeline:
             y, vy = model(x, v)
             if keep_device is None:
                 per_img = y[0].numel() * y.element_size()
-                keep_device = dev.type != "cuda" or per_img * n_images <= _device_maps_budget()
+                keep_device = per_img * n_images <= _device_maps_budget()
             pending.append((y, vy, n))
             drain(1)
         drain(0)
-        return (torch.cat(outs) if len(outs) > 1 else outs[0]), np.concatenate(vouts)
+        if len(outs) == 1:
+            maps = outs[0]
+        else:
+            maps = np.concatenate(outs) if isinstance(outs[0], np.ndarray) else torch.cat(outs)
+        return maps, np.concatenate(vouts)
 
     def _extract(self, model: torch.nn.Module, images: Sequence[np.ndarray],
                  canvas_hw: tuple[int, int] | None = None, device_clahe: bool = False):
@@ -560,7 +591,8 @@ class Pipeline:
                 m, v = self._extract(model, [images[i] for i in idx], canvas, device_clahe)
                 for j, i in enumerate(idx):
                     maps[i], valids[i] = m[j], v[j]
-            return torch.stack(maps), np.stack(valids)
+            stack = np.stack if isinstance(maps[0], np.ndarray) else torch.stack
+            return stack(maps), np.stack(valids)
         batch_u8, valid = pack_canvas(images, canvas_hw)
         bs = max(1, int(self.config["tpu"]["extraction_batch"]))
         chunks = (_pad_chunk(batch_u8[i : i + bs], valid[i : i + bs], bs)
@@ -729,11 +761,21 @@ class Pipeline:
         the tail batch repeating its last probe so every batch has the same
         shapes. With ``tpu.rank_on_device`` the scores stay on the device
         and a :class:`DeviceScores` is returned. ``tpu.ncc_backend = "fft"``
-        goes to :meth:`_score_cluster_fft`.
+        goes to :meth:`_score_cluster_fft`, which scores in f32 whatever
+        ``tpu.precision`` says, as the JAX engine's does.
+
+        ``tpu.precision = "bfloat16"``: the scorer (the kernel's bf16 leg, or
+        the plain scorer) correlates operands rounded to bf16. Gallery maps
+        at rest in bf16 (:meth:`_maps_at_rest`) cross to the device in bf16
+        and are widened there; the cache is f32. The kernel reads f32
+        operands in both legs, so the memory models of
+        :meth:`_probe_batch_and_block` hold for every precision.
         """
         if self.config["tpu"]["ncc_backend"] == "fft":
             return self._score_cluster_fft(q_maps, q_valid, g_maps, g_valid)
         dev = self.device
+        compute_dtype = (torch.bfloat16 if self.config["tpu"]["precision"] == "bfloat16"
+                         else torch.float32)
 
         def on_dev(a: np.ndarray) -> torch.Tensor:
             return torch.as_tensor(a, device=dev)
@@ -802,7 +844,7 @@ class Pipeline:
                 b_hi = min(b_lo + gb, g_total)
                 with self._stage("cache"):
                     cache = build_direct_cache(
-                        g_maps.index_select(0, order_g[b_lo:b_hi]).to(dev, torch.float32),
+                        g_maps.index_select(0, order_g[b_lo:b_hi]).to(dev).float(),
                         on_dev(g_valid[order[b_lo:b_hi]]),
                     )
                 prints = None if tile is None else print_plan(
@@ -811,10 +853,11 @@ class Pipeline:
                     for lo in starts:
                         packed, uniq, inv, rows = stacks[lo] if prebuild else variant_batch(lo)
                         if tile is None:
-                            scores = scorer(cache, packed, layout, true_c, uniq, inv)
+                            scores = scorer(cache, packed, layout, true_c, uniq, inv,
+                                            compute_dtype=compute_dtype)
                         else:
                             scores = score_ncc(cache, packed, layout, true_c, uniq, inv,
-                                               plan=(rows, prints))
+                                               plan=(rows, prints), compute_dtype=compute_dtype)
                         n_take = min(pb, n_q - lo)
                         rows = regroup_max(scores, layout)[:n_take]
                         if rank_dev:
@@ -990,8 +1033,8 @@ class Pipeline:
                 q_maps, q_valid = self._extract(model, q_imgs, device_clahe=device_clahe)
         self.clahe_routes["device" if device_clahe else "host"] += 1
         with stage("extract-gallery"):
-            if g_cached is not None:
-                g_maps, g_valid = torch.from_numpy(g_cached[0]), np.asarray(g_cached[1])
+            if g_cached is not None:  # at rest on the host
+                g_maps, g_valid = g_cached[0], np.asarray(g_cached[1])
             else:
                 if stream:
                     g_maps, g_valid = self._extract_streamed(
@@ -999,8 +1042,25 @@ class Pipeline:
                         plan.scale, self._g_hdr)
                 else:
                     g_maps, g_valid = self._extract(model, g_imgs, device_clahe=device_clahe)
-                self.gallery_cache.put(gkey, g_maps.cpu().numpy(), g_valid)
+                self.gallery_cache.put(gkey, g_maps if isinstance(g_maps, np.ndarray)
+                                       else g_maps.cpu().numpy(), g_valid)
+            g_maps = self._maps_at_rest(g_maps)
         return q_maps, q_valid, g_maps, g_valid, q_files
+
+    def _maps_at_rest(self, g_maps: torch.Tensor | np.ndarray) -> torch.Tensor | np.ndarray:
+        """``tpu.cache_dtype = "bfloat16"``: gallery maps at rest on the host
+        (NumPy arrays or tensors off the device: over the
+        ``SIR_DEVICE_MAPS_MAX`` budget, or from the gallery feature cache)
+        as a bf16 tensor, made once a cluster, which halves the bytes each
+        gallery block moves to the device; maps on the device, and the FFT
+        backend's maps, stay as they are (the JAX engine casts its host maps
+        in its direct scoring path, after the FFT backend has branched off).
+        """
+        tpu = self.config["tpu"]
+        on_device = isinstance(g_maps, torch.Tensor) and g_maps.device.type == self.device.type
+        if tpu["cache_dtype"] != "bfloat16" or tpu["ncc_backend"] == "fft" or on_device:
+            return g_maps
+        return torch.as_tensor(g_maps).to(torch.bfloat16)
 
     def run_cluster(self, plan, next_plan=None) -> ClusterOutput:
         """Score one cluster and rank (the reference's run.py:17-34 body);

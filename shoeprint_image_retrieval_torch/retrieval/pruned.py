@@ -70,7 +70,7 @@ def channel_order(g_maps: Maps, sample: int = 64) -> np.ndarray:
     """
     est = g_maps[: min(sample, len(g_maps))]
     if isinstance(est, torch.Tensor):
-        est = est.cpu().numpy()
+        est = est.float().cpu().numpy()
     est = np.asarray(est, np.float32)
     return np.argsort(-est.var(axis=(0, 2, 3)), kind="stable").astype(np.int32)
 

@@ -27,6 +27,9 @@ TOL = 1e-4  # float32 channel and tap sums in another order than cuDNN's
 # probe kernel vs plain, relative to max |plain|: f32 and bf16 sums in another
 # order (bf16 products are exact in f32); 3xTF32 also drops the lo*lo term
 PROBE_TOL = {"f32": 1e-5, "f32_3xtf32": 1e-4, "bf16": 1e-5}
+# the NCC kernel's bf16 leg vs plain bf16: f32 sums of exact products in
+# another order; the bf16 rounding moves scores further than this
+BF16_TOL = 1e-5
 
 
 def _need_card():
@@ -149,6 +152,70 @@ def test_kernel_rejects_bad_operands():
         ncc_kernel.launch_ncc(*args[:5], other, prints, 5)
     with pytest.raises(ValueError):  # the plan's table on the host
         ncc_kernel.launch_ncc(*args[:5], rows._replace(table=rows.table.cpu()), prints, 5)
+
+
+@pytest.mark.parametrize(
+    "seed,c,n_prints,counts,pb,canvas,kernel_hw",
+    [
+        (10, 8, 5, (1,), 4, (30, 30), (20, 20)),         # one tile (N = 4)
+        (11, 5, 6, (1, 3), 3, (41, 37), (33, 31)),       # C = 5; odd widths: odd x + dx starts
+        (12, 13, 4, (1, 8), 5, (46, 45), (34, 34)),      # C = 13, not a multiple of 8
+        (13, 8, 6, (1, 8, 8, 8), 15, (46, 46), (34, 34)),  # N = 375: a partial last tile
+        # fusion's stride-8 block: a 73 x 73 canvas over 88-wide prints
+        (14, 8, 3, (1, 8), 3, (92, 92), (73, 73)),
+    ],
+)
+def test_bf16_leg_matches_plain_bf16(seed, c, n_prints, counts, pb, canvas, kernel_hw):
+    """The bf16 leg against the plain scorer with bf16 operands: within
+    1e-5, the same top print where the plain margin is clear; its one patch
+    layout fits every canvas; and its scores lie further than that from the
+    3xTF32 leg's."""
+    _need_card()
+    cache, packed, layout = _case(seed, c, n_prints, counts, pb, canvas, kernel_hw)
+    plan = _host_plan(cache, packed, layout)
+    before = dict(ncc_kernel.launch_ncc.leg_launches)
+    got = ncc_kernel.score_ncc(cache, packed, layout, c, plan=plan, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert ncc_kernel.launch_ncc.leg_launches["bf16"] == before["bf16"] + 1
+    assert ncc_kernel.launch_ncc.leg_launches["f32_3xtf32"] == before["f32_3xtf32"]
+    want = score_direct(cache, packed, layout, c, compute_dtype=torch.bfloat16)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= BF16_TOL
+    g_np, w_np = got.cpu().numpy(), want.cpu().numpy()
+    top2 = np.sort(w_np, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * BF16_TOL
+    np.testing.assert_array_equal(np.argmax(g_np, 1)[clear], np.argmax(w_np, 1)[clear])
+    geo = ncc_kernel.launch_geometry(cache.p0.shape[3], *kernel_hw, *plan, precision="bf16")
+    assert geo["patch"] == "bf16" and geo["leg"] == "bf16"
+    f32 = ncc_kernel.score_ncc(cache, packed, layout, c, plan=plan)
+    assert float((got - f32).abs().max()) > BF16_TOL  # the operands were rounded
+
+
+def test_bf16_leg_on_cuda_never_takes_the_plain_scorer(monkeypatch):
+    """A CUDA tensor with compute_dtype bfloat16 launches the bf16 leg; an
+    unknown precision or a 3xTF32 patch layout for the bf16 leg raises."""
+    _need_card()
+    cache, packed, layout = _case(15, 8, 4, (1, 3), 3, (30, 28), (20, 20))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("score_direct reached with CUDA tensors")
+
+    monkeypatch.setattr(ncc_kernel, "score_direct", refuse)
+    before = dict(ncc_kernel.launch_ncc.leg_launches)
+    ncc_kernel.score_ncc(cache, packed, layout, 8, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert ncc_kernel.launch_ncc.leg_launches["bf16"] == before["bf16"] + 1
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ncc_kernel.score_ncc(cache, packed, layout, 8, compute_dtype=torch.float16)
+    plan = _host_plan(cache, packed, layout)
+    kern = packed.kernels.contiguous()
+    gvalid = cache.valid_hw.to(torch.int32).contiguous()
+    args = (cache.p0, cache.int1, cache.int2, kern, gvalid, *plan, 8)
+    with pytest.raises(ValueError, match="precision"):
+        ncc_kernel.launch_ncc(*args, precision="tf32")
+    with pytest.raises(ValueError, match="layout"):
+        ncc_kernel.launch_ncc(*args, patch="split", precision="bf16")
+    assert ncc_kernel.launch_ncc.leg_launches["bf16"] == before["bf16"] + 1
 
 
 def test_pipeline_kernel_ranks_equal_plain(tmp_path):
@@ -375,6 +442,27 @@ def test_maps_over_budget_go_to_pinned_host_memory(tmp_path, monkeypatch):
             assert maps.is_cuda != on_host and (not on_host or maps.is_pinned())
         ranks[budget] = [o.ranks.tolist() for o in pipe.run()]
     assert ranks["0"] == ranks[str(int(2e9))]
+
+
+def test_bf16_maps_at_rest_cross_in_bf16(tmp_path):
+    """``cache_dtype = "bfloat16"``: host maps rest as a bf16 tensor and are
+    scored as those values widened on the card, bit for bit; maps on the
+    card are left alone."""
+    _need_card()
+    from shoeprint_image_retrieval_torch import bench
+
+    w = bench.make_workload(quick=True)
+    q = torch.from_numpy(bench.draw_probe_maps(w)).cuda()
+    pipe = bench.engine_pipeline(tmp_path, w["pb"], torch.device("cuda"))
+    pipe.config["tpu"]["cache_dtype"] = "bfloat16"
+    on_card = torch.from_numpy(w["gal"]).cuda()
+    assert pipe._maps_at_rest(on_card) is on_card
+    rest = pipe._maps_at_rest(torch.from_numpy(w["gal"]).pin_memory())
+    assert rest.dtype == torch.bfloat16 and not rest.is_cuda
+    got = pipe._score_cluster(q, w["q_sizes"], rest, w["g_sizes"])
+    want = pipe._score_cluster(q, w["q_sizes"], rest.cuda().float(), w["g_sizes"])
+    pipe.close()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_blocked_engine_equals_unblocked(tmp_path):
