@@ -124,11 +124,27 @@ Phases, each printing one JSON line:
    each with ``rank_on_device`` off and on. Scores must agree within 1e-6
    and ranks be identical. Reports the auto block ``mem_get_info`` gives at
    a 10,240-print gallery.
-13. ``bench_10k``: the port's ``benchmarks/bench_10k.py`` at G = 10,240,
+13. ``sharded``: gallery sharding (``parallel/``). The fixture through the
+   kernel with ``tpu.mesh_shape = 4`` over ``[cuda:0] * 4`` (the
+   ``Pipeline``'s ``mesh_devices``), then again in blocks of 40 prints, and
+   with ``ncc_backend = "fft"`` over two; each with ``extraction_batch`` the
+   shard count times the fixture's 32, so every device extracts the
+   unsharded run's chunks. Ranks and S-lines must equal ``main_path``'s
+   first kernel run (``fft``'s run for the FFT case), scores within 1e-6,
+   every extraction and cluster run over the mesh, and the
+   NCC kernel launched once a shard, probe batch and gallery block (counts
+   reset just before each run, read just after). Then
+   ``benchmarks/bench_sharded`` (one PB = 56 call against G = 300 prints,
+   unsharded and over 1 / 2 / 4 / 8 shards of ``cuda:0``, each within 1e-6
+   and rank-identical, with its ms, launches, gather bytes, bound and the
+   bound's share). Where more than one card
+   is visible, ``dryrun.dryrun_multichip`` over them; otherwise the line says
+   the copies between cards went unexercised.
+14. ``bench_10k``: the port's ``benchmarks/bench_10k.py`` at G = 10,240,
    C = 176, PB = 128, in blocks of 2048 prints (five), with its checks
    (device ranks = host ranks, an oracle subsample within 5e-4, every
    planted match at rank 1).
-14. ``sizing``: the NCC kernel alone over PB = 28, 56, 64, 112, 224, 320 at
+15. ``sizing``: the NCC kernel alone over PB = 28, 56, 64, 112, 224, 320 at
    the bench's shapes (``benchmarks/kernel_probe``: ms, executed and needed
    FLOP, TFLOP/s, bound share) and at PB = 56 in each of its two patch
    layouts (split, float, float, split), the per-batch variant build
@@ -137,7 +153,7 @@ Phases, each printing one JSON line:
    rest in bf16 (``tpu.cache_dtype``), and the probe
    batch and gallery block ``probe_batch = 0`` gives at G = 300 and 10,240
    (with the block before the equal split).
-15. ``pruned``: ``benchmarks/bench_pruned`` on its planted and random
+16. ``pruned``: ``benchmarks/bench_pruned`` on its planted and random
    workloads (G = 1024, Q = 56, k = 22) through the kernel (launch counts
    reset just before each pruned path and read just after it, inside the
    bench; the full path's counted apart): ranks equal to the full path's;
@@ -150,7 +166,7 @@ Phases, each printing one JSON line:
 
 Every phase reports its seconds (``wall_s``). Then a ``{"kernels": [...]}``
 line (the NCC kernel's entry also gives its launches in ``fusion``'s kernel
-run and in ``pruned``'s two pruned paths, and per leg, 3xTF32 and bf16, its
+run, in ``pruned``'s two pruned paths and in ``sharded``'s first run, and per leg, 3xTF32 and bf16, its
 ms, plain ms, bound, library ms, max |Δ| and launches on its path), the
 card's name and power limit
 as ``nvidia-smi`` prints them, and as the last line
@@ -229,6 +245,10 @@ BF16_TOL = 1e-5
 # package gives ~2e-3 on the TPU, where its bf16 convs keep f32 outputs)
 BF16_FEATURE_TOL = 1e-2
 BF16_BLOCK = 40  # the cache_dtype run: three gallery blocks of the fixture's 120 prints
+# sharded: the fixture over [cuda:0] * SHARDS (and its FFT run over two), once
+# in blocks of SHARD_BLOCK; sharded vs unsharded scores within BLOCK_TOL
+SHARDS = 4
+SHARD_BLOCK = 40
 
 
 def emit(obj: dict) -> None:
@@ -503,9 +523,10 @@ def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: in
     }
 
 
-def run_pipeline(config: dict, backend: str, device: str = "cuda", **tpu):
+def run_pipeline(config: dict, backend: str, device: str = "cuda", mesh_devices=None, **tpu):
     """One run of the fixture through ``Pipeline.run``, with ``[tpu]``
-    overrides; -> (outputs, S-lines, what the run took)."""
+    overrides and the ``Pipeline``'s ``mesh_devices``; -> (outputs,
+    S-lines, what the run took)."""
     import numpy as np
     import torch
 
@@ -519,7 +540,8 @@ def run_pipeline(config: dict, backend: str, device: str = "cuda", **tpu):
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    pipe = Pipeline(cfg, weights_dir=None, verbose=False, device=device)
+    pipe = Pipeline(cfg, weights_dir=None, verbose=False, device=device,
+                    mesh_devices=mesh_devices)
     outs, score_s = [], []
     for out in pipe.run():
         outs.append(out)
@@ -547,6 +569,7 @@ def run_pipeline(config: dict, backend: str, device: str = "cuda", **tpu):
         "ingest_tiers": dict(pipe.ingest_tiers), "clahe": dict(pipe.clahe_routes),
         "conv_routes": dict(pipe.conv_routes),
         "gallery_blocks": pipe.gallery_blocks_scored, "cache_bytes": pipe.cache_bytes,
+        "probe_batches": pipe.probe_batches, "mesh_runs": dict(pipe.mesh_runs),
         "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None,
     }
 
@@ -625,21 +648,24 @@ def summarize_traces(trace_dir: Path) -> dict:
 
 def fixture_config(dataset: Path) -> dict:
     """``benchmarks/synthetic_impress.toml`` pointed at ``dataset``, without
-    the on-disk gallery cache."""
+    the on-disk gallery cache, on one device (the file's ``mesh_shape = 0``
+    would take every visible card): only ``phase_sharded`` sets a mesh."""
     from shoeprint_image_retrieval_torch.config import load_config
 
     config = load_config(Path(__file__).resolve().parent / "benchmarks" / "synthetic_impress.toml")
     config["dataset"]["dir"] = str(dataset)
     config["tpu"]["cache_dir"] = ""
+    config["tpu"]["mesh_shape"] = 1
     return config
 
 
 def phase_main_path(tmp: Path, device: str = "cuda", gallery: int = 120,
-                    queries: int = 30) -> tuple[dict, int, tuple]:
+                    queries: int = 30) -> tuple[dict, int, tuple, tuple]:
     """Plain, kernel, kernel, plain, so that neither backend always pays the
     first run's warm-up; then the kernel with CLAHE on the card, with a
     trace, and without the cluster lookahead. Returns the phase's line, the
-    kernel's launches and the first plain run (outputs, S-lines, info)."""
+    kernel's launches and the first plain and kernel runs (outputs,
+    S-lines, info)."""
     import numpy as np
 
     from scripts.make_synthetic_impress import generate
@@ -694,7 +720,7 @@ def phase_main_path(tmp: Path, device: str = "cuda", gallery: int = 120,
         "scores_max_abs_diff": max_err,
         "kernel_runs_max_abs_diff_vs_run_1": kernel_err,
         "traces": traces,
-    }, launches, runs[0]
+    }, launches, runs[0], runs[1]
 
 
 def held_runs(name: str, got: tuple, want: tuple, tol: float) -> float:
@@ -718,9 +744,9 @@ def held_runs(name: str, got: tuple, want: tuple, tol: float) -> float:
 
 
 def phase_fft(dataset: Path, plain: tuple, kernel_score_s: list[float],
-              device: str = "cuda") -> dict:
+              device: str = "cuda") -> tuple[dict, tuple]:
     """The fixture's main-path config with ``ncc_backend = "fft"``: ranks and
-    S-lines against ``main_path``'s plain run."""
+    S-lines against ``main_path``'s plain run. -> (the line, the run)."""
     t0 = time.perf_counter()
     run = run_pipeline(fixture_config(dataset), "fft", device)
     err = held_runs("fft vs plain", run, plain, TOL)
@@ -728,14 +754,17 @@ def phase_fft(dataset: Path, plain: tuple, kernel_score_s: list[float],
     return {"phase": "fft", "clusters": len(run[0]), "s_lines": run[1],
             "scores_max_abs_diff_vs_plain": err, "run": info,
             "score_s": info["stages_s"]["score"], "kernel_runs_score_s": kernel_score_s,
-            "cache_bytes_per_block": info["cache_bytes"], "wall_s": time.perf_counter() - t0}
+            "cache_bytes_per_block": info["cache_bytes"],
+            "wall_s": time.perf_counter() - t0}, run
 
 
 @contextlib.contextmanager
 def timed_launches(library: bool = False):
     """Time every NCC kernel call the engine makes inside the block: CUDA
-    events around the engine's ``score_ncc`` (which, with the engine's tile
-    plan, only launches the kernel; the kernel's launch count is untouched).
+    events around the ``score_ncc`` that the engine's scorer
+    (``parallel/sharded.make_sharded_packed_scorer``) calls (which, with
+    the engine's tile plan, only launches the kernel; the kernel's launch
+    count is untouched).
     Yields a list that holds, after the block, one record a call: C, rows,
     prints, canvas, ms and the bound by ``phase_kernel``'s formula; with
     ``library``, also one ``F.conv2d`` of each call's operands, timed after
@@ -745,9 +774,9 @@ def timed_launches(library: bool = False):
 
     from shoeprint_image_retrieval_torch.benchmarks.kernel_probe import bound, library_ms
     from shoeprint_image_retrieval_torch.ops.ncc_kernel import needed_flop
-    from shoeprint_image_retrieval_torch.retrieval import engine
+    from shoeprint_image_retrieval_torch.parallel import sharded
 
-    real = engine.score_ncc
+    real = sharded.score_ncc
     pending, records = [], []
 
     def timed(cache, packed, layout, true_channels, slot_hw=None, slot_map=None, plan=None,
@@ -765,11 +794,11 @@ def timed_launches(library: bool = False):
                         cache.valid_hw.clone(), plan[0], moved, operands))
         return out
 
-    engine.score_ncc = timed
+    sharded.score_ncc = timed
     try:
         yield records
     finally:
-        engine.score_ncc = real
+        sharded.score_ncc = real
         torch.cuda.synchronize()
         for start, end, (n, c, hk, wk), (_, g, hb, wb), gvalid, rows, moved, operands in pending:
             row_hw = rows.windows[np.arange(n) // rows.m_tile, rows.slots]
@@ -1427,6 +1456,56 @@ def phase_gallery_blocks(device: str = "cuda") -> dict:
             "wall_s": time.perf_counter() - t0}
 
 
+def phase_sharded(dataset: Path, kernel_run: tuple, fft_run: tuple,
+                  device: str = "cuda") -> tuple[dict, int]:
+    """Gallery sharding (``parallel/``) on the card; -> (the line, the NCC
+    kernel's launches in the first sharded fixture run)."""
+    import torch
+
+    from shoeprint_image_retrieval_torch.benchmarks import bench_sharded
+    from shoeprint_image_retrieval_torch.dryrun import dryrun_multichip
+    from shoeprint_image_retrieval_torch.ops import ncc_kernel
+
+    t0 = time.perf_counter()
+    config = fixture_config(dataset)
+    batch = int(config["tpu"]["extraction_batch"])
+    out = {"phase": "sharded", "device_count": torch.cuda.device_count(), "runs": {}}
+    launches = {}
+    # each device extracts the main path's chunks: the chunk is n times the
+    # main path's, so every device's batch has the main path's shape
+    for name, n, backend, want_run, tpu in (
+            ("mesh4", SHARDS, "auto", kernel_run, {}),
+            ("mesh4_blocks", SHARDS, "auto", kernel_run, {"gallery_block": SHARD_BLOCK}),
+            ("fft_mesh2", 2, "fft", fft_run, {})):
+        ncc_kernel.launch_ncc.launches = 0
+        run = run_pipeline(config, backend, device, mesh_devices=[device] * n, mesh_shape=n,
+                           extraction_batch=n * batch, **tpu)
+        launches[name] = ncc_kernel.launch_ncc.launches
+        outs, _, info = run
+        err = held_runs(f"sharded {name} vs unsharded", run, want_run, BLOCK_TOL)
+        score_key = "fft" if backend == "fft" else "score"
+        want_runs = {f"extract:{n}": 2 * len(outs), f"{score_key}:{n}": len(outs)}
+        if info["mesh_runs"] != want_runs:
+            raise AssertionError(f"{name}: mesh runs {info['mesh_runs']}, expected {want_runs}")
+        blocks = info["gallery_blocks"] // len(outs)
+        want_launches = 0 if backend == "fft" else sum(
+            n * -(-o.n_queries // pb) * blocks for o, pb in zip(outs, info["probe_batches"]))
+        if launches[name] != want_launches:
+            raise AssertionError(f"{name}: {launches[name]} kernel launches, expected "
+                                 f"{want_launches} (one a shard, batch and block)")
+        out["runs"][name] = {"shards": n, "max_abs_diff": err, "launches": launches[name],
+                             "blocks_per_cluster": blocks, **info}
+    out["scaling"] = bench_sharded.scaling(device=device)
+    if torch.cuda.device_count() > 1:
+        n = min(torch.cuda.device_count(), SHARDS)
+        out["dryrun"] = dryrun_multichip(n, [f"cuda:{i}" for i in range(n)])
+    else:
+        out["dryrun"] = ("one CUDA device visible: the copies between cards went "
+                         "unexercised; every mesh here repeats cuda:0")
+    out["wall_s"] = time.perf_counter() - t0
+    return out, launches["mesh4"]
+
+
 def phase_bench_10k(device: str = "cuda") -> dict:
     from shoeprint_image_retrieval_torch.benchmarks import bench_10k
 
@@ -1451,12 +1530,13 @@ def main() -> int:
     kern = phase_kernel()
     emit(kern)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        main_path, launches, plain = phase_main_path(Path(tmp))
+        main_path, launches, plain, kernel_run = phase_main_path(Path(tmp))
         emit(main_path)
         dataset = Path(tmp) / "Dataset"
         kernel_score_s = [r["stages_s"]["score"] for r in main_path["runs"]
                           if r["backend"] == "auto"]
-        emit(phase_fft(dataset, plain, kernel_score_s))
+        fft, fft_run = phase_fft(dataset, plain, kernel_score_s)
+        emit(fft)
         emit(phase_families(dataset))
         fusion, fusion_launches = phase_fusion(dataset)
         emit(fusion)
@@ -1466,11 +1546,13 @@ def main() -> int:
         emit(phase_parity(Path(tmp)))
         bf16, bf16_launches = phase_bf16(dataset, plain, extract)
         emit(bf16)
-    emit(phase_backbones())
-    probe, probe_launches = phase_mxu_probe()
-    emit(probe)
-    emit(phase_bench())
-    emit(phase_gallery_blocks())
+        emit(phase_backbones())
+        probe, probe_launches = phase_mxu_probe()
+        emit(probe)
+        emit(phase_bench())
+        emit(phase_gallery_blocks())
+        sharded, sharded_launches = phase_sharded(dataset, kernel_run, fft_run)
+        emit(sharded)
     emit(phase_bench_10k())
     emit(phase_sizing())
     pruned, pruned_launches = phase_pruned()
@@ -1490,6 +1572,9 @@ def main() -> int:
         "library_ms": kern["library_ms"],
         "launches_fusion": fusion_launches,
         "launches_pruned": pruned_launches,
+        # the fixture over [cuda:0] * 4 (tpu.mesh_shape = 4): one launch a
+        # shard, probe batch and gallery block
+        "launches_sharded": sharded_launches,
         # the 3xTF32 leg is the entry's primary; the bf16 leg's launches are
         # its fixture run's (tpu.precision = "bfloat16")
         "legs": {

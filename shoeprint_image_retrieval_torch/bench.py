@@ -30,9 +30,11 @@ Prints one JSON line on stdout (progress goes to stderr): ``metric``,
 ``value``, ``unit``, ``vs_baseline`` (value / 100 probes/s, BASELINE.json's
 north-star target), ``engine`` and ``kernel`` in probes/s, and the device.
 Runs on the card unless ``--device cpu``; ``--quick`` shrinks the workload
-(G = 24, C = 16, Q = 4, PB = 2) for the CPU. The JAX bench's TPU-only or
-unported switches (``BENCH_EPI``, ``SIR_FORCE_SHARDED``) are not carried
-over.
+(G = 24, C = 16, Q = 4, PB = 2) for the CPU. The engine runs on one device
+(``tpu.mesh_shape = 1``, as the JAX bench's). The JAX bench's TPU-only
+switch ``BENCH_EPI`` is not carried over, nor ``SIR_FORCE_SHARDED``: here
+one device is a mesh of one, and the engine always scores through the
+mesh path.
 """
 
 from __future__ import annotations
@@ -115,16 +117,19 @@ rotations = {rotations}
 scales = {scales}
 
 [tpu]
+mesh_shape = 1
 ncc_backend = "pallas"
 probe_batch = {pb}
 precision = "{precision}"
 """
 
 
-def engine_pipeline(root: Path, pb: int, device: torch.device, precision: str = "float32"):
+def engine_pipeline(root: Path, pb: int, device: torch.device, precision: str = "float32",
+                    mesh_devices=None):
     """A ``Pipeline`` over a one-print, one-query dummy dataset, with
-    ``tpu.precision`` = ``precision``: the bench drives its
-    ``_score_cluster`` with its own maps."""
+    ``tpu.precision`` = ``precision`` and the ``Pipeline``'s
+    ``mesh_devices``: the bench drives its ``_score_cluster`` with its own
+    maps."""
     from PIL import Image
 
     from .config import load_config
@@ -136,7 +141,8 @@ def engine_pipeline(root: Path, pb: int, device: torch.device, precision: str = 
     cfg = root / "run.toml"
     cfg.write_text(RUN_TOML.format(root=root, rotations=ROTATIONS, scales=SCALES, pb=pb,
                                    precision=precision))
-    return Pipeline(load_config(cfg), weights_dir=None, verbose=False, device=device)
+    return Pipeline(load_config(cfg), weights_dir=None, verbose=False, device=device,
+                    mesh_devices=mesh_devices)
 
 
 def run_engine_mode(w: dict, qmaps: np.ndarray, device: torch.device,

@@ -36,12 +36,14 @@ Same parse as ``shoeprint_image_retrieval_tpu/config.py``: plain TOML, the
   ``SIR_DEVICE_MAPS_MAX`` or loaded from the gallery feature cache, are
   held in bf16 while scored; the cache and scoring stay f32);
   ``probe_batch = 0`` means 56 on the CPU and on a card the rows the card
-  can take (``ops/ncc_kernel.auto_probe_rows``);
-* read and ignored: ``mesh_shape`` <= 1;
-* refused with ``NotImplementedError`` naming the ROADMAP item that will
-  port it: ``mesh_shape`` > 1; ``pruned_scoring`` with ``fusion_blocks`` is
-  a ``ValueError`` (pruned mode never builds the matrices fusion sums);
-  other values of ``precision`` and ``cache_dtype`` are a ``LookupError``.
+  can take (``ops/ncc_kernel.auto_probe_rows``); ``mesh_shape`` (the
+  gallery sharded over that many devices, ``parallel/``; 0 = every visible
+  CUDA device, one on the CPU; a value over the device count is clamped to
+  it, as the JAX engine's ``_mesh_size`` clamps to ``jax.devices()``);
+* refused: ``pruned_scoring`` with ``fusion_blocks`` is a ``ValueError``
+  (pruned mode never builds the matrices fusion sums), and so is a negative
+  ``gallery_block``; other values of ``ncc_backend``,
+  ``variant_mode``, ``precision`` and ``cache_dtype`` are a ``LookupError``.
 """
 
 from __future__ import annotations
@@ -71,14 +73,6 @@ _TPU_DEFAULTS: dict = {
 }
 
 
-def not_ported(what: str, item: int, title: str) -> NotImplementedError:
-    """The error for a feature a later slice of the port brings."""
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet: ROADMAP.md, 'Still to port', "
-        f"item {item} ({title})"
-    )
-
-
 def load_config(config_file: Path | str) -> dict:
     """Load a ``run.toml`` with reference-compatible semantics."""
     with Path(config_file).open("rb") as fh:
@@ -97,14 +91,12 @@ def load_config(config_file: Path | str) -> dict:
 
 
 def check_supported(config: dict) -> None:
-    """Raise for ``[tpu]`` values that need a later slice of the port."""
+    """Raise for ``[tpu]`` values the port cannot run."""
     tpu = config["tpu"]
     if tpu["ncc_backend"] not in ("auto", "pallas", "direct", "fft"):
         raise LookupError(f"Unknown tpu.ncc_backend: {tpu['ncc_backend']!r}")
     if tpu["variant_mode"] not in ("reference", "full"):
         raise LookupError(f"Unknown tpu.variant_mode: {tpu['variant_mode']!r}")
-    if int(tpu["mesh_shape"]) > 1:
-        raise not_ported("tpu.mesh_shape > 1", 8, "multi-GPU")
     if tpu["pruned_scoring"] and tpu["fusion_blocks"]:
         raise ValueError(
             "tpu.pruned_scoring is rank-only and cannot be combined with "

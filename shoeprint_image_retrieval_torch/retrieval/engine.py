@@ -38,14 +38,22 @@ retrieval/engine.py`` (reference run.py:17-34 + similarity.py:129-375):
   and the direct scorer's correlation on operands rounded to bf16 (the NCC
   kernel's bf16 leg on a card); with ``tpu.cache_dtype = "bfloat16"``, the
   gallery maps at rest on the host held in bf16 and widened on the device a
-  gallery block at a time.
+  gallery block at a time;
+* with ``tpu.mesh_shape`` (0 = every visible CUDA device, one on the CPU),
+  the gallery sharded over a mesh of devices in this one process
+  (``parallel/``; :class:`Pipeline`'s ``mesh_devices`` names them, repeats
+  allowed): extraction chunks split over the devices, one backbone replica
+  per distinct device; each gallery block's cache built shard by shard on
+  the shards' devices, each probe batch's stack built probe-sharded where
+  the batch divides by the mesh, every shard scored on its device and the
+  rows gathered to the first. One device is a mesh of one: the same path.
 
-Not carried over (ROADMAP.md, 'Still to port'): the TPU sizing helpers and
-the mesh.
+Not carried over (ROADMAP.md, 'Not carried over'): the TPU sizing helpers.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import os
 import threading
@@ -53,6 +61,7 @@ import warnings
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, replace
+from functools import partial
 from pathlib import Path
 from typing import Iterable, Sequence
 
@@ -72,13 +81,12 @@ from ..models.registry import get_backbone
 from ..models.weights import build_model
 from ..ops.boxsum import EDGE_CROP
 from ..ops.clahe import clahe_batched_dynamic, lab_u8_to_rgb, rgb_to_lab_u8
-from ..ops.ncc import build_gallery_cache, score_templates
+from ..ops.ncc import build_gallery_cache
 from ..ops.ncc_direct import (
     PackedVariants,
     VariantLayout,
     build_direct_cache,
     fold_template,
-    score_direct,
 )
 from ..ops.ncc_kernel import (
     AUTO_BLOCK_MARGIN_BYTES,
@@ -91,11 +99,18 @@ from ..ops.ncc_kernel import (
     print_plan,
     probe_row_bytes,
     row_plan,
-    score_ncc,
 )
 from ..ops.preprocess import normalize_batch
 from ..ops.topk import ranks_on_device
 from ..ops.warp import pil_resize_size, resample_weights, rotate_index_map
+from ..parallel.mesh import Mesh, build_mesh, normal_device, visible_devices
+from ..parallel.sharded import (
+    build_sharded_cache,
+    make_sharded_packed_builder,
+    make_sharded_packed_scorer,
+    make_sharded_scorer,
+    shard_valid,
+)
 from ..utils.tracing import profile_trace, stage_timer
 from .gallery import GalleryFeatureCache
 from .pruned import pruned_ranks
@@ -112,6 +127,10 @@ PREBUILD_BYTES = 6e9
 # chunks the streamed extraction prepares ahead of the device (host memory
 # holds about this many chunks)
 STREAM_LOOKAHEAD = 2
+# On a mesh of more than one device, the free memory the sizing solves
+# within shrinks by this much more on the tightest device (the JAX engine's
+# mesh_extra: the sharded caches and the stack's copies beside it)
+MESH_EXTRA_BYTES = int(2.5e9)
 
 
 def _device_maps_budget() -> int:
@@ -343,6 +362,12 @@ class Pipeline:
     plain PyTorch version; on the CPU it is always the plain version.
     ``"fft"`` scores through FFTs on either device.
 
+    ``mesh_devices`` lists the devices ``tpu.mesh_shape`` takes its mesh
+    from, in order, repeats allowed (``["cpu"] * 8``, ``["cuda:0"] * 4``):
+    the port's stand-in for XLA's forced host device count. Its first must
+    be ``device``. By default: ``device``, then every other visible CUDA
+    device on a card; ``device`` alone on the CPU.
+
     What each run took is counted on the object: ``stage_seconds`` and
     ``lookahead_seconds`` (below), ``ingest_tiers`` (the loader tier that
     served each file set), ``clahe_routes`` (``host`` or ``device``, once per
@@ -352,7 +377,9 @@ class Pipeline:
     ``prune_stats`` (``pruned_ranks``' statistics, once per pruned cluster)
     and ``conv_routes`` (once per extracted set, on whichever thread:
     ``"{precision}:{route}"``, the models' bound ``tpu.precision`` and the
-    conv arithmetic that served it, ``models/layers.conv_route``).
+    conv arithmetic that served it, ``models/layers.conv_route``) and
+    ``mesh_runs`` (``"extract:{n}"`` per set extracted over a mesh of n >
+    1, ``"score:{n}"`` / ``"fft:{n}"`` per cluster scored over one).
 
     Stage seconds are kept per thread. The calling thread's stages go into
     ``stage_seconds``; each ends with a device-wide synchronise, so a stage
@@ -367,11 +394,21 @@ class Pipeline:
     """
 
     def __init__(self, config: dict, weights_dir: str | None = "weights",
-                 verbose: bool = True, device: str | torch.device = "cuda"):
+                 verbose: bool = True, device: str | torch.device = "cuda",
+                 mesh_devices: Sequence[str | torch.device] | None = None):
         check_supported(config)
         self.config = config
         self.verbose = verbose
         self.device = resolve_device(device)
+        home = normal_device(self.device)
+        if mesh_devices is None:
+            self._mesh_pool = [home] + [d for d in visible_devices(home.type) if d != home]
+        else:
+            self._mesh_pool = [normal_device(d) for d in mesh_devices]
+            if not self._mesh_pool or self._mesh_pool[0] != home:
+                raise ValueError(f"mesh_devices must start with the pipeline's device {home}, "
+                                 f"not {self._mesh_pool[:1]}")
+        self._replicas: dict[tuple[int, torch.device], torch.nn.Module] = {}
         self.dataset = Dataset(config["dataset"]["dir"], config["dataset"]["type"])
         if verbose:
             print(self.dataset.summary())
@@ -388,6 +425,7 @@ class Pipeline:
         self.cache_bytes: list[int] = []  # each scored gallery block's scoring cache
         self.probe_batches: list[int] = []  # probes per call, each direct scoring call
         self.prune_stats: list[dict] = []  # pruned_ranks' stats, each pruned cluster
+        self.mesh_runs: Counter = Counter()
         self._mode_cache: dict[str, str] = {}
         self._la_pool: ThreadPoolExecutor | None = None
         self._lookahead = None  # (plan, future of its features)
@@ -467,6 +505,45 @@ class Pipeline:
             self._models[block] = model
         return self._models[block]
 
+    def _replica(self, model: torch.nn.Module, dev: torch.device) -> torch.nn.Module:
+        """``model`` on ``dev``: itself on the pipeline's device (the mesh
+        pool's first, indexed once in ``__init__``: no thread's current
+        device is read here), else a copy made once, ``tpu.precision`` bound
+        on it as on the original."""
+        if dev == self._mesh_pool[0]:
+            return model
+        key = (id(model), dev)
+        if key not in self._replicas:
+            replica = copy.deepcopy(model).to(dev)
+            set_conv_precision(replica, model.conv_precision)
+            self._replicas[key] = replica
+        return self._replicas[key]
+
+    def _mesh_size(self) -> int:
+        """``tpu.mesh_shape`` (0 = every device of the pool) clamped to the
+        pool, as the JAX engine clamps to ``jax.devices()``."""
+        n = len(self._mesh_pool)
+        return min(int(self.config["tpu"]["mesh_shape"]) or n, n)
+
+    def _mesh(self) -> Mesh:
+        """The mesh of :meth:`_mesh_size` devices: one device is a mesh of
+        one, and runs the same path."""
+        return build_mesh(self._mesh_size(), self._mesh_pool)
+
+    def _count_mesh_run(self, kind: str, mesh: Mesh) -> None:
+        """One run of ``kind`` in ``mesh_runs``, where the mesh holds more
+        than one device."""
+        if mesh.size > 1:
+            self.mesh_runs[f"{kind}:{mesh.size}"] += 1
+
+    def _free_bytes(self, mesh: Mesh) -> int:
+        """Free bytes the sizing solves within: the pipeline device's, or on
+        a mesh of more than one the tightest device's less
+        :data:`MESH_EXTRA_BYTES`."""
+        if mesh.size == 1:
+            return free_bytes(self.device)
+        return min(free_bytes(d) for d in mesh.distinct()) - MESH_EXTRA_BYTES
+
     def _host_clahe(self, images: Sequence[np.ndarray]) -> list[np.ndarray] | None:
         """Equalise on the host with the native C++ CLAHE (bit-exact vs cv2),
         or ``None`` where it cannot take the set exactly and the device CLAHE
@@ -523,6 +600,13 @@ class Pipeline:
         host.copy_(y)
         return host
 
+    def _extraction_batch(self) -> int:
+        """Images a chunk: ``tpu.extraction_batch``, rounded up to a multiple
+        of the mesh, so each device takes an equal part."""
+        bs = max(1, int(self.config["tpu"]["extraction_batch"]))
+        n = self._mesh_size()
+        return -(-bs // n) * n
+
     @torch.inference_mode()
     def _run_extraction(self, model: torch.nn.Module, chunks: Iterable, n_images: int,
                         device_clahe: bool):
@@ -536,8 +620,20 @@ class Pipeline:
         on the device when all of them fit :func:`_device_maps_budget`,
         else each chunk's go to the host: pinned tensors on a card, NumPy
         arrays on the CPU, which tells them from maps kept on the device.
+
+        Data-parallel over the mesh (the JAX engine's chunk sharded over its
+        mesh): each chunk is split into equal parts, part i extracted on the
+        mesh's device i by that device's replica of ``model``, and the
+        parts' maps gathered to the pipeline's device before the rule above
+        applies. On a mesh of one the chunk is one part.
         """
         dev = self.device
+        mesh = self._mesh()
+        # the mesh's devices are indexed (the pool's): "cuda" is not equal
+        # to "cuda:0"
+        devices = mesh.devices
+        models = {d: self._replica(model, d) for d in mesh.distinct()}
+        self._count_mesh_run("extract", mesh)
         outs, vouts, pending = [], [], []
         keep_device = None
         self.conv_routes[f"{model.conv_precision}:{conv_route(model.conv_precision, dev)}"] += 1
@@ -552,13 +648,22 @@ class Pipeline:
                     host = self._to_host(y[:n])
                     outs.append(host if dev.type == "cuda" else host.numpy())
 
-        for batch, valid, n in chunks:
-            u8 = torch.as_tensor(batch).to(dev, non_blocking=True)
-            v = torch.as_tensor(valid).to(dev, non_blocking=True)
+        def extract_part(d: torch.device, batch, valid):
+            u8 = torch.as_tensor(batch).to(d, non_blocking=True)
+            v = torch.as_tensor(valid).to(d, non_blocking=True)
             if device_clahe:
                 u8 = self._device_clahe(u8, v)
-            x = normalize_batch(u8, v, self.spec.mean, self.spec.std)
-            y, vy = model(x, v)
+            return models[d](normalize_batch(u8, v, self.spec.mean, self.spec.std), v)
+
+        for batch, valid, n in chunks:
+            k = len(batch) // len(devices)
+            parts = [extract_part(d, batch[i * k : (i + 1) * k], valid[i * k : (i + 1) * k])
+                     for i, d in enumerate(devices)]
+            if len(parts) == 1:
+                y, vy = parts[0]
+            else:
+                y, vy = (torch.cat([p[j].to(dev, non_blocking=True) for p in parts])
+                         for j in (0, 1))
             if keep_device is None:
                 per_img = y[0].numel() * y.element_size()
                 keep_device = per_img * n_images <= _device_maps_budget()
@@ -594,7 +699,7 @@ class Pipeline:
             stack = np.stack if isinstance(maps[0], np.ndarray) else torch.stack
             return stack(maps), np.stack(valids)
         batch_u8, valid = pack_canvas(images, canvas_hw)
-        bs = max(1, int(self.config["tpu"]["extraction_batch"]))
+        bs = self._extraction_batch()
         chunks = (_pad_chunk(batch_u8[i : i + bs], valid[i : i + bs], bs)
                   + (min(bs, len(images) - i),) for i in range(0, len(images), bs))
         return self._run_extraction(model, chunks, len(images), device_clahe)
@@ -645,7 +750,7 @@ class Pipeline:
         crop = self.config["dataset"]["crop"]
         n_threads = self.config["dataset"]["n_processes"]
         canvas = canvas_bucket([self._ingest_out_hw(hdr[f], crop, scale) for f in files])
-        bs = max(1, int(self.config["tpu"]["extraction_batch"]))
+        bs = self._extraction_batch()
         # a mixed L/RGB set: every chunk on the 3-channel canvas, or an
         # all-gray chunk would extract as gray
         force_rgb = len({self._file_mode(directory, f) for f in files}) > 1
@@ -683,21 +788,26 @@ class Pipeline:
                        kept_stacks: int) -> int:
         """Prints per gallery block: ``tpu.gallery_block`` when it is set;
         for 0, on the CPU one block, on a card the largest block that fits
-        its free memory (:func:`~..device.free_bytes`,
+        its free memory (:meth:`_free_bytes`,
         :func:`~..ops.ncc_kernel.auto_gallery_block`) evened out into equal
         blocks (:func:`~..ops.ncc_kernel.equal_blocks`), so no short tail
-        block is scored alone."""
+        block is scored alone. Rounded up to a multiple of the mesh, so
+        every block shards evenly."""
+        mesh = self._mesh()
         gb = int(self.config["tpu"]["gallery_block"])
         if gb > 0:
-            return min(gb, g_total)
-        if self.device.type != "cuda":
-            return g_total
-        return equal_blocks(g_total, auto_gallery_block(
-            g_total, bytes_per_print, free_bytes(self.device), stack_bytes, kept_stacks))
+            gb = min(gb, g_total)
+        elif self.device.type != "cuda":
+            gb = g_total
+        else:
+            gb = equal_blocks(g_total, auto_gallery_block(
+                g_total, bytes_per_print, self._free_bytes(mesh), stack_bytes, kept_stacks))
+        return -(-gb // mesh.size) * mesh.size
 
     def _probe_batch_and_block(self, n_q: int, g_total: int, true_c: int,
                                feat_hw: tuple[int, int], raw_hw: tuple[int, int],
-                               plan: VariantPlan, n_var: int, tile_rows: int | None) -> tuple[int, int]:
+                               plan: VariantPlan, n_var: int,
+                               tile_rows: int | None) -> tuple[int, int]:
         """(probes per scoring call, prints per gallery block) for a cluster of
         ``n_q`` probes on ``feat_hw`` canvases against ``g_total`` prints of
         ``raw_hw`` maps, ``n_var`` variants a probe; ``tile_rows`` is the
@@ -708,7 +818,14 @@ class Pipeline:
         up to 1024 prints (:func:`~..ops.ncc_kernel.auto_probe_rows`), the
         gallery block for that batch (:meth:`_gallery_block`), then the rows
         that fit beside that block's cache, cut into equal batches.
+
+        On a mesh of more than one device (the JAX engine's rules): free
+        memory is the tightest device's less :data:`MESH_EXTRA_BYTES`, the
+        block is rounded up to a multiple of the mesh and the batch down to
+        one where it holds at least one probe a device (the probe-sharded
+        build); a smaller batch keeps its size and the replicated build.
         """
+        mesh = self._mesh()
         kernel_hw = (plan.template_canvas[0] - 2 * EDGE_CROP,
                      plan.template_canvas[1] - 2 * EDGE_CROP)
         pb_cfg = int(self.config["tpu"]["probe_batch"])
@@ -721,7 +838,7 @@ class Pipeline:
             return auto_probe_rows(row_bytes, room, tile_rows or 1)
 
         if auto:
-            pb = rows(min(g_total, 1024), free_bytes(self.device) - AUTO_BLOCK_MARGIN_BYTES) // n_var
+            pb = rows(min(g_total, 1024), self._free_bytes(mesh) - AUTO_BLOCK_MARGIN_BYTES) // n_var
         else:
             pb = pb_cfg or DEFAULT_PROBE_BATCH
         pb = max(1, min(n_q, pb))
@@ -738,10 +855,12 @@ class Pipeline:
             # multiple of 64 probes a batch at 25 variants, and at the
             # fewest calls the equal batch already runs the fewest tiles (a
             # larger batch only pads the last call with repeated probes)
-            room = (free_bytes(self.device) - AUTO_BLOCK_MARGIN_BYTES
+            room = (self._free_bytes(mesh) - AUTO_BLOCK_MARGIN_BYTES
                     - gb * gallery_block_bytes_per_print(true_c, *raw_hw, 0)
                     - (int(PREBUILD_BYTES) if gb < g_total else 0))
             pb = equal_blocks(n_q, max(1, min(n_q, rows(gb, room) // n_var)))
+        if pb >= mesh.size:
+            pb = pb // mesh.size * mesh.size
         return pb, gb
 
     def _score_cluster(
@@ -770,6 +889,16 @@ class Pipeline:
         and are widened there; the cache is f32. The kernel reads f32
         operands in both legs, so the memory models of
         :meth:`_probe_batch_and_block` hold for every precision.
+
+        Over the mesh (:meth:`_mesh`; one device is a mesh of one): each
+        block's cache is built shard by shard on the shards' devices from
+        the height-sorted block (``parallel/sharded.build_sharded_cache``);
+        on a mesh of more than one, each probe batch's stack is built
+        probe-sharded when the batch divides by the mesh, else on the
+        pipeline's device; every shard is scored on its device (the kernel
+        launched once a shard) and the rows gathered to the pipeline's
+        device, where ``regroup_max`` and the device ranks run. Fusion and
+        pruned scoring call this, so they shard with it.
         """
         if self.config["tpu"]["ncc_backend"] == "fft":
             return self._score_cluster_fft(q_maps, q_valid, g_maps, g_valid)
@@ -788,12 +917,12 @@ class Pipeline:
         include_rots_unscaled, class_counts = variant_classes(
             self.config["tpu"]["variant_mode"], plan.n_rot, plan.n_scl
         )
-        # score_ncc takes the plain version itself for CPU tensors
-        scorer = score_direct if self.config["tpu"]["ncc_backend"] == "direct" else score_ncc
+        # ops/ncc_kernel.score_ncc takes the plain version itself for CPU tensors
+        use_kernel = self.config["tpu"]["ncc_backend"] != "direct"
         # the kernel's tile plan is made on the host: its rows' half once per
         # probe batch, its prints' half once per gallery block
         tile = None
-        if scorer is score_ncc and dev.type == "cuda":
+        if use_kernel and dev.type == "cuda":
             self._join_prewarm()
             tile = kernel_tile()
         rank_dev = bool(self.config["tpu"]["rank_on_device"])
@@ -801,6 +930,8 @@ class Pipeline:
         g_valid = np.asarray(g_valid)
         g_maps = torch.as_tensor(g_maps)
         g_total = len(g_valid)
+        mesh = self._mesh()
+        self._count_mesh_run("score", mesh)
 
         pb, gb = self._probe_batch_and_block(
             n_q, g_total, true_c, (hc, wc), tuple(g_maps.shape[2:]), plan, sum(class_counts),
@@ -815,21 +946,25 @@ class Pipeline:
         order_g = torch.as_tensor(order, device=g_maps.device)
         tables = [on_dev(a) for a in (q_valid, plan.rot_idx, plan.rot_ok, plan.wv,
                                       plan.wh, plan.scale_hw)]
+        build_fn = partial(build_kernels, kernel_hw=kernel_hw,
+                           include_rots_unscaled=include_rots_unscaled, n_scl=plan.n_scl)
+        # probe-sharded stack builds where the batch divides by a mesh of
+        # more than one
+        sharded_build = (make_sharded_packed_builder(mesh, build_fn, class_counts, pb)
+                         if mesh.size > 1 and pb % mesh.size == 0 else None)
 
         def variant_batch(lo: int):
             take = np.minimum(np.arange(lo, lo + pb), n_q - 1)
             take_d = on_dev(take)
-            kernels = build_kernels(
-                q_maps.index_select(0, take_d),
-                *[t.index_select(0, take_d) for t in tables],
-                kernel_hw=kernel_hw,
-                include_rots_unscaled=include_rots_unscaled,
-                n_scl=plan.n_scl,
-            )
+            inputs = [q_maps.index_select(0, take_d), *[t.index_select(0, take_d) for t in tables]]
             wins, uniq, inv = batch_windows(q_valid[take], plan.scale_hw[take], plan.n_scl)
+            if sharded_build is None:
+                packed = PackedVariants(build_fn(*inputs), on_dev(wins))
+            else:
+                packed = sharded_build(*inputs, on_dev(wins))
             rows = None if tile is None else row_plan(
                 host_row_hw(wins, layout, uniq, inv), kernel_hw, tile.rows, dev)
-            return PackedVariants(kernels, on_dev(wins)), on_dev(uniq), on_dev(inv), rows
+            return packed, on_dev(uniq), on_dev(inv), rows
 
         with torch.inference_mode():
             if rank_dev:
@@ -842,22 +977,20 @@ class Pipeline:
                     stacks = {lo: variant_batch(lo) for lo in starts}
             for b_lo in range(0, g_total, gb):
                 b_hi = min(b_lo + gb, g_total)
+                blk_valid = g_valid[order[b_lo:b_hi]]
                 with self._stage("cache"):
-                    cache = build_direct_cache(
-                        g_maps.index_select(0, order_g[b_lo:b_hi]).to(dev).float(),
-                        on_dev(g_valid[order[b_lo:b_hi]]),
-                    )
-                prints = None if tile is None else print_plan(
-                    g_valid[order[b_lo:b_hi]] - 2 * EDGE_CROP, tile.positions)
+                    shards, _ = build_sharded_cache(build_direct_cache, g_maps, blk_valid,
+                                                    mesh, order_g[b_lo:b_hi])
+                    prints = None if tile is None else [
+                        print_plan(v - 2 * EDGE_CROP, tile.positions)
+                        for v in shard_valid(blk_valid, mesh.size)]
+                    scorer = make_sharded_packed_scorer(
+                        mesh, shards, true_channels=true_c, layout=layout, g_true=b_hi - b_lo,
+                        use_kernel=use_kernel, compute_dtype=compute_dtype, prints=prints)
                 with self._stage("score"):
                     for lo in starts:
                         packed, uniq, inv, rows = stacks[lo] if prebuild else variant_batch(lo)
-                        if tile is None:
-                            scores = scorer(cache, packed, layout, true_c, uniq, inv,
-                                            compute_dtype=compute_dtype)
-                        else:
-                            scores = score_ncc(cache, packed, layout, true_c, uniq, inv,
-                                               plan=(rows, prints), compute_dtype=compute_dtype)
+                        scores = scorer(packed, uniq, inv, rows)
                         n_take = min(pb, n_q - lo)
                         rows = regroup_max(scores, layout)[:n_take]
                         if rank_dev:
@@ -866,8 +999,10 @@ class Pipeline:
                             out[lo : lo + n_take, b_lo:b_hi] = rows.cpu().numpy()
                         if self.verbose and b_hi == g_total:
                             print(f"  scored {lo + n_take}/{n_q} queries")
-                self.cache_bytes.append(sum(t.numel() * t.element_size() for t in cache))
-                del cache
+                self.cache_bytes.append(sum(t.numel() * t.element_size()
+                                            for shard in shards for t in shard))
+                # the scorer holds the shards: let both go before the next block
+                del shards, scorer
                 self.gallery_blocks_scored += 1
         inv_order = np.argsort(order)
         if rank_dev:
@@ -882,8 +1017,7 @@ class Pipeline:
         g_valid: np.ndarray,
     ) -> np.ndarray:
         """(Q, G) scores through the FFT backend (``ops/ncc.py``), one probe
-        at a time, as the JAX engine's ``_score_cluster_fft`` runs it
-        without a mesh.
+        at a time, as the JAX engine's ``_score_cluster_fft`` runs it.
 
         Per probe, the unfolded variant stack (rotation gathers, scale
         products, padded to the template canvas) is scored against one FFT
@@ -891,6 +1025,9 @@ class Pipeline:
         gallery in one block; a short tail block is padded with empty prints
         to the block's shape. The gallery keeps its original order; the max
         over variants is floored at 0. ``rank_on_device`` does not apply.
+        The block is rounded up to a multiple of the mesh; each block's FFT
+        cache is built shard by shard and scored through ``parallel/sharded.
+        make_sharded_scorer``.
         """
         dev = self.device
         q_maps = torch.as_tensor(q_maps).to(dev)
@@ -907,6 +1044,9 @@ class Pipeline:
         g_maps = torch.as_tensor(g_maps)
         g_total = len(g_valid)
         gb = min(int(self.config["tpu"]["gallery_block"]) or g_total, g_total)
+        mesh = self._mesh()
+        self._count_mesh_run("fft", mesh)
+        gb = -(-gb // mesh.size) * mesh.size
         tables = [torch.as_tensor(a, device=dev) for a in (plan.rot_idx, plan.rot_ok,
                                                              plan.wv, plan.wh)]
         # each probe's variants' valid sizes, in the stack's order
@@ -927,27 +1067,21 @@ class Pipeline:
             for b_lo in range(0, g_total, gb):
                 b_hi = min(b_lo + gb, g_total)
                 with self._stage("cache"):
-                    blk = g_maps[b_lo:b_hi].to(dev, torch.float32)
-                    blk_valid = g_valid[b_lo:b_hi]
-                    if b_hi - b_lo < gb:
-                        pad = gb - (b_hi - b_lo)
-                        blk = torch.cat([blk, blk.new_zeros((pad, *blk.shape[1:]))])
-                        blk_valid = np.concatenate(
-                            [blk_valid, np.full((pad, 2), 2 * EDGE_CROP + 8, blk_valid.dtype)])
-                    cache, _ = build_gallery_cache(blk, torch.as_tensor(blk_valid, device=dev),
-                                                   kernel_hw)
-                    del blk
+                    shards, _ = build_sharded_cache(
+                        lambda m, v: build_gallery_cache(m, v, kernel_hw)[0],
+                        g_maps[b_lo:b_hi], g_valid[b_lo:b_hi], mesh)
+                    score_block = make_sharded_scorer(mesh, shards, true_channels=true_c,
+                                                      g_true=b_hi - b_lo)
                 with self._stage("score"):
                     rows = torch.empty((n_q, gb), dtype=torch.float32, device=dev)
                     for qi in range(n_q):
-                        scores = score_templates(cache, templates(qi), t_valid[qi],
-                                                 true_channels=true_c)
-                        rows[qi] = torch.clamp(scores.amax(dim=0), min=0.0)
+                        scores = score_block(templates(qi), t_valid[qi])
+                        rows[qi, : scores.shape[1]] = torch.clamp(scores.amax(dim=0), min=0.0)
                         if self.verbose and (qi + 1) % 10 == 0 and b_hi == g_total:
                             print(f"  scored {qi + 1}/{n_q} queries")
                     out[:, b_lo:b_hi] = rows[:, : b_hi - b_lo].cpu().numpy()
-                self.cache_bytes.append(cache.nbytes())
-                del cache
+                self.cache_bytes.append(sum(c.nbytes() for c in shards))
+                del shards, score_block
                 self.gallery_blocks_scored += 1
         return out
 

@@ -240,7 +240,8 @@ def test_pipeline_kernel_ranks_equal_plain(tmp_path):
 
 
 def _pipeline_config(tmp_path):
-    """A tiny Impress-layout dataset (8 prints, 4 queries) and its run.toml."""
+    """A tiny Impress-layout dataset (8 prints, 4 queries) and its run.toml,
+    on one device (``mesh_shape = 0`` would take every visible card)."""
     rng = np.random.default_rng(11)
     root = tmp_path / "data"
     (root / "Gallery").mkdir(parents=True)
@@ -279,6 +280,7 @@ rotations = [9, 180]
 scales = [1.04]
 [tpu]
 probe_batch = 3
+mesh_shape = 1
 """)
     return cfg_path
 
@@ -646,3 +648,84 @@ def test_pruned_ranks_with_prints_tied_to_the_true_match(tmp_path):
     np.testing.assert_array_equal(got, want)
     assert got[1] == 2  # the copy at the higher index ranks above the true match
     assert stats["survivors"] >= len(set(pairs.tolist()))
+
+
+def _sharded_case(mesh_devices, dtype):
+    """19 prints at the main-path canvas scored by the kernel unsharded and
+    sharded over ``mesh_devices``: (unsharded, sharded, sharded with the pad
+    columns, launches of the sharded call, shards)."""
+    from shoeprint_image_retrieval_torch.parallel.mesh import build_mesh
+    from shoeprint_image_retrieval_torch.parallel.sharded import (
+        make_sharded_packed_scorer, shard_cache)
+
+    c = 16
+    cache, packed, layout = _case(9, c, 19, (1, 8, 8), 3, (46, 46), (34, 34))
+    want = ncc_kernel.score_ncc(cache, packed, layout, c, compute_dtype=dtype)
+    mesh = build_mesh(len(mesh_devices), mesh_devices)
+    shards, g_true = shard_cache(cache, mesh)
+    scorer = make_sharded_packed_scorer(mesh, shards, true_channels=c, layout=layout,
+                                        g_true=g_true, use_kernel=True, compute_dtype=dtype)
+    before = ncc_kernel.launch_ncc.launches
+    got = scorer(packed)
+    launches = ncc_kernel.launch_ncc.launches - before
+    padded = make_sharded_packed_scorer(mesh, shards, true_channels=c, layout=layout,
+                                        use_kernel=True, compute_dtype=dtype)(packed)
+    return want.cpu().numpy(), got.cpu().numpy(), padded.cpu().numpy(), launches, shards
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [4, 8])
+def test_sharded_kernel_matches_unsharded(n, dtype):
+    """The NCC kernel once a shard on ``[cuda:0] * n``: within 1e-6 of one
+    unsharded call, the same rank order, the last shard's pad prints 0."""
+    _need_card()
+    want, got, padded, launches, shards = _sharded_case(["cuda:0"] * n, dtype)
+    assert launches == n and got.shape == want.shape == (3 * 17, 19)
+    assert float(np.abs(got - want).max()) <= 1e-6
+    assert (np.argsort(-got, axis=1, kind="stable")
+            == np.argsort(-want, axis=1, kind="stable")).all()
+    k = shards[0].valid_hw.shape[0]
+    assert padded.shape[1] == n * k > 19 and (padded[:, 19:] == 0).all()
+    np.testing.assert_array_equal(padded[:, :19], got)
+
+
+def test_sharded_kernel_across_real_devices():
+    """Shards on distinct cards (up to four): the kernel on each, the rows
+    copied to the first; then the engine's dryrun over those cards."""
+    _need_card()
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("one CUDA device visible: copies between cards not exercised")
+    from shoeprint_image_retrieval_torch.dryrun import dryrun_multichip
+
+    devices = [f"cuda:{i}" for i in range(n)]
+    want, got, padded, launches, shards = _sharded_case(devices, torch.float32)
+    assert [s.p0.device.index for s in shards] == list(range(n)) and launches == n
+    assert float(np.abs(got - want).max()) <= 1e-6
+    assert (padded[:, 19:] == 0).all()
+    out = dryrun_multichip(n, devices)
+    assert out["score_err"] <= 1e-6 and out["gallery_blocks"] == 2
+
+
+def test_extraction_makes_no_replica_of_the_model_on_its_own_card(tmp_path):
+    """One card, at a mesh of one and of ``cuda:0`` twice: extraction
+    runs the pipeline's own models and copies none (``"cuda"`` is
+    ``cuda:0``); the sharded run's ranks equal the unsharded run's."""
+    _need_card()
+    from shoeprint_image_retrieval_torch.config import load_config
+    from shoeprint_image_retrieval_torch.retrieval.engine import Pipeline
+
+    cfg_path = _pipeline_config(tmp_path)
+    outs = {}
+    for mesh_shape in (1, 2):
+        cfg = load_config(cfg_path)
+        cfg["tpu"]["mesh_shape"] = mesh_shape
+        cfg["tpu"]["extraction_batch"] = 32 * mesh_shape  # each device: the same chunk
+        pipe = Pipeline(cfg, weights_dir=None, verbose=False, device="cuda",
+                        mesh_devices=["cuda:0"] * 2)
+        outs[mesh_shape] = list(pipe.run())
+        assert pipe._replicas == {}
+        assert ("extract:2" in pipe.mesh_runs) == (mesh_shape == 2)
+    for a, b in zip(outs[1], outs[2]):
+        np.testing.assert_array_equal(a.ranks, b.ranks)
+        np.testing.assert_allclose(a.scores, b.scores, atol=1e-6)

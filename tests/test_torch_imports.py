@@ -74,6 +74,14 @@ SIZING_PRUNING_MODULES = {
     "shoeprint_image_retrieval_torch.benchmarks.bench_autosize",
 }
 
+# modules added with the mesh (gallery sharding)
+MESH_MODULES = {
+    "shoeprint_image_retrieval_torch.parallel.mesh",
+    "shoeprint_image_retrieval_torch.parallel.sharded",
+    "shoeprint_image_retrieval_torch.benchmarks.bench_sharded",
+    "shoeprint_image_retrieval_torch.dryrun",
+}
+
 
 def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", BLOCKED_IMPORTS], cwd=REPO,
@@ -85,6 +93,7 @@ def test_port_imports_with_jax_blocked():
     assert FRONT_END_MODULES <= names
     assert BACKBONE_FFT_MODULES <= names
     assert SIZING_PRUNING_MODULES <= names
+    assert MESH_MODULES <= names
 
 
 def test_no_source_names_jax_or_the_jax_package():

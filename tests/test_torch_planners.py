@@ -78,16 +78,12 @@ def test_config_loads_like_jax(tmp_path):
         assert got == want
     cfg = tload("run.toml")
     check_supported(cfg)
-    for key, value, item in [("mesh_shape", 2, 8)]:
-        bad = tload("run.toml")
-        bad["tpu"][key] = value
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*item {item}"):
-            check_supported(bad)
     for key, value in [("clahe_host", False), ("pipeline_clusters", False), ("prewarm", False),
                        ("profile_dir", "traces"), ("ncc_backend", "fft"),
                        ("fusion_blocks", [6, 4]), ("pruned_scoring", True),
                        ("prune_channels", 22), ("prune_margin", 1e-2),
-                       ("precision", "bfloat16"), ("cache_dtype", "bfloat16")]:  # honoured now
+                       ("precision", "bfloat16"), ("cache_dtype", "bfloat16"),
+                       ("mesh_shape", 2)]:  # honoured now
         ok = tload("run.toml")
         ok["tpu"][key] = value
         check_supported(ok)
