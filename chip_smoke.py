@@ -9,12 +9,12 @@ Phases, each printing one JSON line:
 1. ``build``: compiles every kernel of the port (``csrc/*.cu``) from the
    sources in the checkout for ``sm_90a``, one ``nvcc`` per source, all
    started together, with the compiler's register/shared-memory report and
-   each entry function's registers and spills (the NCC kernel's six
-   instantiations: the 3xTF32 leg's split and float patches and the bf16
-   leg, each at 2 and 3 stages); fails if the NCC kernel or the probe
-   kernel spills registers or an NCC instantiation is missing.
+   each entry function's registers, spills and ptxas's ``wgmma`` notes
+   (the NCC kernel's three instantiations: the 3xTF32 leg's split and float
+   patches and the bf16 leg); fails if the NCC kernel or the probe kernel
+   spills registers or an NCC instantiation is missing.
 2. ``kernel``: the fused NCC scorer ``score_ncc`` (the wrapper the engine
-   calls; a 3xTF32 ``wgmma`` implicit GEMM) against its plain PyTorch
+   calls; a warp-specialised 3xTF32 ``wgmma`` implicit GEMM) against its plain PyTorch
    version on the card, at the main-path shapes (G = 300 prints of 38-46 px
    raw, C = 176, probes of 28-36 px, a 34 x 34 kernel canvas, 25 variants
    per probe, PB = 56 probes, N = 1400 rows), plus the edge cases (zero
@@ -25,7 +25,10 @@ Phases, each printing one JSON line:
    convolution's (the yardstick, never called by the port), the least time
    the card could take at the route's peak (``bound_ms``, 3xTF32 at
    495 / 3 TFLOP/s) and on the CUDA cores (``bound_fp32_ms``), the FLOP the
-   kernel executes for its tile plan and the launch geometry.
+   kernel executes for its tile plan, the launch geometry and the design
+   (``ncc_design``: the producer and consumer warpgroups and the registers
+   ``setmaxnreg`` gives each, the tap ring's depth, the patch buffers, and
+   each instantiation's launch registers, spills and ptxas ``wgmma`` notes).
 3. ``main_path``: the synthetic Impress fixture
    (``scripts/make_synthetic_impress.generate``, 120 prints, 30 queries) on
    ``benchmarks/synthetic_impress.toml``'s settings through the port's
@@ -86,7 +89,8 @@ Phases, each printing one JSON line:
    m64n64k16 on operands rounded to bf16) against the plain scorer on the
    same bf16 operands (within 1e-5, true-match ranks identical), with its
    ms, its bound at 989 TFLOP/s and share of it, the plain ms, one
-   ``F.conv2d`` on the bf16 operands, and its max |Δ| against the 3xTF32
+   ``F.conv2d`` on the bf16 operands, its design (as ``kernel``'s) and its
+   max |Δ| against the 3xTF32
    leg, which must exceed 1e-5; the fixture with ``precision =
    "bfloat16"``, plain then kernel, and again with ``cache_dtype =
    "bfloat16"``, ``gallery_block = 40`` and ``SIR_DEVICE_MAPS_MAX = 0``
@@ -272,25 +276,44 @@ def spill_bytes(ptxas_lines: list[str]) -> int:
 
 def ptxas_entries(report: str) -> list[dict]:
     """Each compiled entry function of one ``nvcc -Xptxas -v`` report with
-    its registers and spill bytes; the NCC kernel's instantiations also with
-    their stages and leg (``ops/ncc_kernel.LAYOUTS``: float and split are
-    the 3xTF32 leg's patch layouts)."""
+    its registers (at launch: ``setmaxnreg`` moves them between roles
+    after), its spill bytes and ptxas's notes on its ``wgmma`` (the codes of
+    serialised or compiler-waited products); the NCC kernel's
+    instantiations also with their leg (``ops/ncc_kernel.LAYOUTS``: float
+    and split are the 3xTF32 leg's patch layouts)."""
     from shoeprint_image_retrieval_torch.ops.ncc_kernel import LAYOUTS
 
+    notes: dict[str, list[str]] = {}
+    for m in re.finditer(r"\((C\d+)\)[^\n]*function '([^']+)'", report):
+        notes.setdefault(m.group(2), []).append(m.group(1))
     entries, cur = [], None
     for ln in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            cur = {"entry": m.group(1), "registers": None, "spill_bytes": 0}
-            inst = re.search(r"ncc_score_kernelILi(\d+)ELNS_\d+LegE(\d+)E", m.group(1))
+            cur = {"entry": m.group(1), "registers": None, "spill_bytes": 0,
+                   "wgmma_notes": notes.get(m.group(1), [])}
+            inst = re.search(r"ncc_score_kernelILNS_\d+LegE(\d+)E", m.group(1))
             if inst:
-                cur.update(stages=int(inst.group(1)), layout=LAYOUTS[int(inst.group(2))])
+                cur["layout"] = LAYOUTS[int(inst.group(1))]
             entries.append(cur)
         elif cur is not None and "spill" in ln:
             cur["spill_bytes"] += spill_bytes([ln])
         elif cur is not None and (m := re.search(r"Used (\d+) registers", ln)):
             cur["registers"] = int(m.group(1))
     return entries
+
+
+def ncc_design(build: dict, geometry: dict) -> dict:
+    """The NCC kernel's design beside a call's times: its roles (the
+    producer warpgroup and its consumers, the registers ``setmaxnreg`` gives
+    each), the call's tap-ring depth and patch buffers, and each
+    instantiation's launch registers, spills and ptxas ``wgmma`` notes."""
+    keys = ("threads", "producer_warpgroups", "consumer_warpgroups", "producer_regs",
+            "consumer_regs", "stages", "patch", "patch_buffers", "smem_bytes")
+    return {**{k: geometry[k] for k in keys},
+            "instantiations": [{k: e[k] for k in ("layout", "registers", "spill_bytes",
+                                                  "wgmma_notes")}
+                               for e in build["sources"]["ncc_score"]["entries"] if "layout" in e]}
 
 
 def phase_build() -> dict:
@@ -312,9 +335,9 @@ def phase_build() -> dict:
         if out["sources"][name]["spill_bytes"]:
             raise AssertionError(f"{name} spills registers: {out['sources'][name]}")
     # both legs of the NCC kernel were compiled: 3xTF32 in two patch layouts
-    # and bf16, each at 2 and 3 stages
-    legs = {(e.get("layout"), e.get("stages")) for e in out["sources"]["ncc_score"]["entries"]}
-    want = {(lay, st) for lay in ("float", "split", "bf16") for st in (2, 3)}
+    # and bf16
+    legs = {e.get("layout") for e in out["sources"]["ncc_score"]["entries"]}
+    want = {"float", "split", "bf16"}
     if not want <= legs:
         raise AssertionError(f"ncc_score: instantiations {sorted(legs, key=str)}, expected "
                              f"{sorted(want)}")
@@ -445,8 +468,8 @@ def float64_errors(cache, packed, layout, c, uniq, inv, got) -> dict:
     return errs
 
 
-def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: int = 300,
-                 c: int = 176) -> dict:
+def phase_kernel(build: dict, pb: int = PROBES, reps: int = REPS, device: str = "cuda",
+                 g: int = 300, c: int = 176) -> dict:
     import numpy as np
     import torch
 
@@ -506,10 +529,11 @@ def phase_kernel(pb: int = PROBES, reps: int = REPS, device: str = "cuda", g: in
     out_bytes = got.numel() * got.element_size()
     bound = kernel_probe.bound(flops, in_bytes + out_bytes)
     n, g = got.shape
+    geometry = ncc_kernel.launch_geometry(cache.p0.shape[3], int(hk), int(wk), rows, prints)
     return {
         "phase": "kernel", "probes": pb, "rows": n, "prints": g, "channels": c,
-        "kernel_hw": [int(hk), int(wk)],
-        "geometry": ncc_kernel.launch_geometry(cache.p0.shape[3], int(hk), int(wk), rows, prints),
+        "kernel_hw": [int(hk), int(wk)], "geometry": geometry,
+        "design": ncc_design(build, geometry),
         "tiles": len(rows.taps), "position_blocks_per_print": prints.n_chunks,
         "max_abs_err": err, "edge_case_max_abs_err": edge_err, "err_vs_float64": err64,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1179,7 +1203,7 @@ def phase_parity(tmp: Path, device: str = "cuda", gallery: int = PARITY_GALLERY,
             "wall_s": time.perf_counter() - t0}
 
 
-def phase_bf16(dataset: Path, plain_f32: tuple, extract_f32: dict,
+def phase_bf16(dataset: Path, plain_f32: tuple, extract_f32: dict, build: dict,
                device: str = "cuda") -> tuple[dict, int]:
     """``tpu.precision`` and ``tpu.cache_dtype = "bfloat16"`` on the card.
 
@@ -1229,6 +1253,7 @@ def phase_bf16(dataset: Path, plain_f32: tuple, extract_f32: dict,
     call = kernel_probe.probe_call(inputs, dev, library=True, plain=True, precision="bf16",
                                    keep=True)
     call["launches"] = dict(launch.leg_launches)
+    call["design"] = ncc_design(build, call["geometry"])
     if call["launches"]["bf16"] < 1 or call["launches"]["f32_3xtf32"]:
         raise AssertionError(f"bf16: the main-path call launched {call['launches']}")
     got, want = call.pop("out"), call.pop("plain_out")
@@ -1526,8 +1551,9 @@ def main() -> int:
     resolve_device("cuda")
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "device": torch.cuda.get_device_name(0)})
-    emit(phase_build())
-    kern = phase_kernel()
+    build = phase_build()
+    emit(build)
+    kern = phase_kernel(build)
     emit(kern)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         main_path, launches, plain, kernel_run = phase_main_path(Path(tmp))
@@ -1544,7 +1570,7 @@ def main() -> int:
         extract = phase_extract()
         emit(extract)
         emit(phase_parity(Path(tmp)))
-        bf16, bf16_launches = phase_bf16(dataset, plain, extract)
+        bf16, bf16_launches = phase_bf16(dataset, plain, extract, build)
         emit(bf16)
         emit(phase_backbones())
         probe, probe_launches = phase_mxu_probe()
@@ -1575,6 +1601,9 @@ def main() -> int:
         # the fixture over [cuda:0] * 4 (tpu.mesh_shape = 4): one launch a
         # shard, probe batch and gallery block
         "launches_sharded": sharded_launches,
+        # the 3xTF32 call's roles, ring and instantiations (the bf16 leg's
+        # under its leg)
+        "design": kern["design"],
         # the 3xTF32 leg is the entry's primary; the bf16 leg's launches are
         # its fixture run's (tpu.precision = "bfloat16")
         "legs": {
@@ -1583,7 +1612,8 @@ def main() -> int:
                            "library_ms": kern["library_ms"],
                            "max_abs_err": kern["max_abs_err"], "launches": launches},
             "bf16": {key: bf16["main_shape_call"][key] for key in
-                     ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+                     ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                      "design")}
                     | {"launches": bf16_launches},
         },
     }, {

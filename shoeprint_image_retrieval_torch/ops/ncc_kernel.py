@@ -7,8 +7,10 @@ meaning and is not carried over; the kernel reads the cache in its natural
 channel-major layout and the variant stack in the engine's (N, C, hk, wk)
 layout.
 
-The kernel is a tensor-core implicit GEMM over tiles of variant rows, in
-two legs (:data:`PRECISIONS`): 3xTF32, the f32 product and the default, and
+The kernel is a warp-specialised tensor-core implicit GEMM over tiles of
+variant rows (a producer warpgroup keeps a ring of tap chunks and the next
+channel's patch ready; two consumer warpgroups issue the products), in two
+legs (:data:`PRECISIONS`): 3xTF32, the f32 product and the default, and
 bf16 for ``tpu.precision = "bfloat16"`` (the JAX kernel's ``compute_dtype =
 bfloat16``: both operands of the correlation rounded to bf16, f32
 accumulation, f32 window energies). Both legs read the same f32 operands
@@ -55,8 +57,9 @@ SOURCE = "shoeprint_image_retrieval_torch/csrc/ncc_score.cu"
 REPLACES = "shoeprint_image_retrieval_tpu/ops/pallas/ncc_kernel.py:963"
 # the kernel's legs: their codes in the C interface and their routes
 PRECISIONS = {"f32_3xtf32": 0, "bf16": 1}
-ROUTE = {"f32_3xtf32": "wgmma m64n64k8 3xTF32 (A from registers)",
-         "bf16": "wgmma m64n64k16 bf16, f32 accumulation (A from registers)"}
+ROUTE = {"f32_3xtf32": "wgmma m64n64k8 3xTF32 (A from registers), producer/consumer ring",
+         "bf16": "wgmma m64n64k16 bf16, f32 accumulation (A from registers), "
+                 "producer/consumer ring"}
 # the compute dtype of a scoring call -> the leg that serves it, and back
 LEG_OF_DTYPE = {torch.float32: "f32_3xtf32", torch.bfloat16: "bf16"}
 DTYPE_OF_LEG = {leg: dtype for dtype, leg in LEG_OF_DTYPE.items()}
@@ -74,7 +77,18 @@ class Tile(NamedTuple):
     rows: int       # variant rows per tile
     positions: int  # output positions of one print per block
     taps: int       # taps per staged chunk
-    threads: int    # threads per block
+
+
+class Roles(NamedTuple):
+    """One leg's warpgroups, as ``ncc_score_roles`` reports them: threads
+    per block, producer and consumer warpgroups, and the registers
+    ``setmaxnreg`` gives a thread of each."""
+
+    threads: int
+    producers: int
+    consumers: int
+    producer_regs: int
+    consumer_regs: int
 
 
 @functools.cache
@@ -84,11 +98,13 @@ def _library() -> ctypes.CDLL:
     ptr, cint = ctypes.c_void_p, ctypes.c_int
     lib.ncc_score.argtypes = [ptr] * 8 + [cint] * 13 + [ptr]
     lib.ncc_score.restype = cint
-    lib.ncc_score_geometry.argtypes = [cint] * 7 + [
-        ctypes.POINTER(cint), ctypes.POINTER(cint), ctypes.POINTER(ctypes.c_longlong)]
+    lib.ncc_score_geometry.argtypes = [cint] * 7 + [ctypes.POINTER(cint)] * 3 + [
+        ctypes.POINTER(ctypes.c_longlong)]
     lib.ncc_score_geometry.restype = cint
-    lib.ncc_score_tile.argtypes = [ctypes.POINTER(cint)] * 4
+    lib.ncc_score_tile.argtypes = [ctypes.POINTER(cint)] * 3
     lib.ncc_score_tile.restype = None
+    lib.ncc_score_roles.argtypes = [cint] + [ctypes.POINTER(cint)] * 5
+    lib.ncc_score_roles.restype = cint
     lib.ncc_error_string.argtypes = [cint]
     lib.ncc_error_string.restype = ctypes.c_char_p
     return lib
@@ -98,9 +114,20 @@ def _library() -> ctypes.CDLL:
 def kernel_tile() -> Tile:
     """The block tile of the kernel as built (``csrc/ncc_score.cu`` is its
     only source)."""
-    vals = [ctypes.c_int() for _ in range(4)]
+    vals = [ctypes.c_int() for _ in range(3)]
     _library().ncc_score_tile(*[ctypes.byref(v) for v in vals])
     return Tile(*(v.value for v in vals))
+
+
+@functools.cache
+def kernel_roles(precision: str = "f32_3xtf32") -> Roles:
+    """The producer and consumer warpgroups of one leg of the kernel as
+    built."""
+    vals = [ctypes.c_int() for _ in range(5)]
+    rc = _library().ncc_score_roles(PRECISIONS[precision], *[ctypes.byref(v) for v in vals])
+    if rc != 0:
+        raise ValueError(f"no roles for precision {precision!r}")
+    return Roles(*(v.value for v in vals))
 
 
 class RowPlan(NamedTuple):
@@ -218,18 +245,14 @@ def _position_chunks(gvalid: np.ndarray, n_tile: int):
     return first, last, live
 
 
-def executed_flop(rows: RowPlan, gvalid: np.ndarray, channels: int,
-                  kernel_hw: tuple[int, int], tile: Tile) -> float:
-    """FLOP the kernel executes for this plan, by a host model of its
-    blocks: for every (tile, print, position chunk) block, 2 x rows x
-    positions x its taps rounded up to whole chunks, per channel. The
-    block's taps are the tile's rectangle clipped to the tap rows and
-    columns that reach the print's valid region from one of its positions,
-    as the kernel clips them. A 3xTF32 product counts once (its three
-    tensor-core products are one f32 product). Both legs stage the same
-    32-tap chunks (the bf16 leg as two k16 steps, the 3xTF32 leg as four
-    k8 steps; a block's taps run on across tap rows, so only its last chunk
-    is padded), so the count holds for both."""
+def block_taps(rows: RowPlan, gvalid: np.ndarray, kernel_hw: tuple[int, int],
+               tile: Tile) -> tuple[np.ndarray, np.ndarray]:
+    """(K (T, G, Q), live (G, Q)): the taps K of every (tile, print, position
+    chunk) block, as the kernel clips them (the tile's rectangle cut to the
+    tap rows and columns that reach the print's valid region from one of the
+    block's positions), and which blocks exist. The canvas centre tap lies
+    in every tile's rectangle and reaches every position, so a live block
+    keeps K >= 1."""
     hk, wk = (int(v) for v in kernel_hw)
     gv = np.asarray(gvalid, np.int64).reshape(-1, 2)
     first, last, live = _position_chunks(gv, tile.positions)
@@ -240,7 +263,20 @@ def executed_flop(rows: RowPlan, gvalid: np.ndarray, channels: int,
     i_hi = np.minimum(i0 + h - 1, vh - 1 + hk // 2 - y_first)
     j_lo = np.maximum(j0, wk // 2 - (vw - 1))
     j_hi = np.minimum(j0 + w - 1, vw - 1 + wk // 2)
-    k = np.maximum(i_hi - i_lo + 1, 0) * np.maximum(j_hi - j_lo + 1, 0)
+    return np.maximum(i_hi - i_lo + 1, 0) * np.maximum(j_hi - j_lo + 1, 0), live
+
+
+def executed_flop(rows: RowPlan, gvalid: np.ndarray, channels: int,
+                  kernel_hw: tuple[int, int], tile: Tile) -> float:
+    """FLOP the kernel executes for this plan, by a host model of its
+    blocks: for every (tile, print, position chunk) block, 2 x rows x
+    positions x its taps (:func:`block_taps`) rounded up to whole chunks,
+    per channel. A 3xTF32 product counts once (its three tensor-core
+    products are one f32 product). Both legs stage the same 32-tap chunks
+    (the bf16 leg as two k16 steps, the 3xTF32 leg as four k8 steps; a
+    block's taps run on across tap rows, so only its last chunk is padded),
+    so the count holds for both."""
+    k, live = block_taps(rows, gvalid, kernel_hw, tile)
     k_pad = -(-k // tile.taps) * tile.taps
     return (2.0 * tile.rows * tile.positions * channels
             * float(np.where(live[None], k_pad, 0).sum()))
@@ -360,25 +396,31 @@ def _check_leg(precision: str, patch: str) -> None:
 
 def launch_geometry(wb: int, hk: int, wk: int, rows: RowPlan, prints: PrintPlan,
                     patch: str = "auto", precision: str = "f32_3xtf32") -> dict:
-    """The kernel's leg, block shape, stages, patch layout (the 3xTF32
-    leg's ``split`` (hi, lo) pairs, or ``float`` split where read, for
-    canvases whose split patch does not fit; the bf16 leg's ``bf16``) and
-    shared memory for these sizes and this plan (from the library itself,
-    so the report matches what runs)."""
+    """The kernel's leg, block shape, roles, tap-ring stages, patch layout
+    (the 3xTF32 leg's ``split`` (hi, lo) pairs, or ``float`` split where
+    read, for canvases whose split patch does not fit; the bf16 leg's
+    ``bf16``), patch buffers (2: the next channel's staged beside the
+    current one's products; 1 where two do not fit) and shared memory for
+    these sizes and this plan (from the library itself, so the report
+    matches what runs)."""
     _check_leg(precision, patch)
-    stages, layout, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    stages, buffers, layout = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    smem = ctypes.c_longlong()
     rc = _library().ncc_score_geometry(wb, hk, wk, patch_rows(prints, hk), rows.windows.shape[1],
                                        PRECISIONS[precision], PATCHES[patch],
-                                       ctypes.byref(stages), ctypes.byref(layout),
-                                       ctypes.byref(smem))
+                                       ctypes.byref(stages), ctypes.byref(buffers),
+                                       ctypes.byref(layout), ctypes.byref(smem))
     if rc != 0:
         raise RuntimeError(f"no launch geometry for Wb={wb} hk={hk} wk={wk} ({precision} leg, "
                            f"{patch} patch)")
-    tile = kernel_tile()
+    tile, roles = kernel_tile(), kernel_roles(precision)
     return {"leg": precision, "route": ROUTE[precision], "rows_per_block": tile.rows,
             "positions_per_block": tile.positions, "taps_per_stage": tile.taps,
-            "threads": tile.threads, "stages": stages.value, "patch": LAYOUTS[layout.value],
-            "smem_bytes": smem.value}
+            "threads": roles.threads, "producer_warpgroups": roles.producers,
+            "consumer_warpgroups": roles.consumers,
+            "producer_regs": roles.producer_regs, "consumer_regs": roles.consumer_regs,
+            "stages": stages.value, "patch": LAYOUTS[layout.value],
+            "patch_buffers": buffers.value, "smem_bytes": smem.value}
 
 
 def gallery_block_bytes_per_print(channels: int, hraw: int, wraw: int, n_rows: int) -> int:

@@ -24,6 +24,11 @@ from shoeprint_image_retrieval_torch.ops.ncc_direct import (
 pytestmark = pytest.mark.gpu
 
 TOL = 1e-4  # float32 channel and tap sums in another order than cuDNN's
+# the kernel against the plain scorer in float64: 3xTF32 keeps a product to
+# ~2^-22 and sums each 32-tap chunk afresh. The plain scorer in float32 is
+# itself more than 1e-4 from float64 on some of the ring's edge cases, so
+# those are held against float64
+F64_TOL = 1e-5
 # probe kernel vs plain, relative to max |plain|: f32 and bf16 sums in another
 # order (bf16 products are exact in f32); 3xTF32 also drops the lo*lo term
 PROBE_TOL = {"f32": 1e-5, "f32_3xtf32": 1e-4, "bf16": 1e-5}
@@ -37,12 +42,16 @@ def _need_card():
         pytest.skip("needs a CUDA device")
 
 
-def _case(seed, c, n_prints, counts, pb, canvas, kernel_hw):
+def _case(seed, c, n_prints, counts, pb, canvas, kernel_hw, print_hw=()):
+    """Seeded prints and templates on the card; ``print_hw`` fixes the raw
+    sizes of the first prints (the rest are drawn)."""
     rng = np.random.default_rng(seed)
     gal = np.zeros((n_prints, c, *canvas), np.float32)
     gv = np.zeros((n_prints, 2), np.int32)
     for i in range(n_prints):
         h, w = int(rng.integers(canvas[0] // 2, canvas[0] + 1)), int(rng.integers(canvas[1] // 2, canvas[1] + 1))
+        if i < len(print_hw):
+            h, w = print_hw[i]
         gal[i, :, :h, :w] = rng.normal(size=(c, h, w))
         gv[i] = (h, w)
     n = pb * sum(counts)
@@ -106,6 +115,46 @@ def test_kernel_matches_plain(seed, c, n_prints, counts, pb, canvas, kernel_hw):
             ncc_kernel.score_ncc(cache, packed, layout, c, plan=plan, patch="split")
 
 
+# the producer/consumer ring's edge cases: (seed, c, n_prints, counts, pb,
+# canvas, kernel_hw, print_hw)
+RING_EDGES = [
+    # C = 1 and a one-chunk rectangle (a 4 x 4 canvas): fewer chunks than
+    # the ring has stages, a channel's next patch staged as it starts
+    (20, 1, 4, (1, 3), 3, (16, 16), (4, 4), ()),
+    # a 1 x 1 print beside others: its block's clipped rectangle is the
+    # centre tap alone (K = 1; the centre tap lies in every tile's
+    # rectangle, so no block clips to K = 0)
+    (21, 8, 4, (1, 8), 2, (40, 40), (34, 34), ((5, 5),)),
+    # N = 65: the last tile holds one row, 63 rows past N
+    (22, 4, 3, (1,), 65, (30, 30), (20, 20), ()),
+    # a print of 5 x 7 = 35 positions, fewer than one consumer fragment
+    # (64): the second consumer warpgroup reads clamped positions only
+    (23, 8, 4, (1, 3), 3, (40, 40), (30, 30), ((9, 11),)),
+    # fusion's 73 x 73 canvas over 88-wide prints (the float patch) at C = 1
+    (24, 1, 3, (1, 8), 2, (92, 92), (73, 73), ()),
+]
+
+
+@pytest.mark.parametrize("seed,c,n_prints,counts,pb,canvas,kernel_hw,print_hw", RING_EDGES)
+def test_ring_edge_cases_match_plain(seed, c, n_prints, counts, pb, canvas, kernel_hw, print_hw):
+    """The 3xTF32 leg at the ring's edges, through the kernel: every score
+    finite and within F64_TOL of the plain scorer in float64."""
+    _need_card()
+    cache, packed, layout = _case(seed, c, n_prints, counts, pb, canvas, kernel_hw, print_hw)
+    before = ncc_kernel.launch_ncc.launches
+    got = ncc_kernel.score_ncc(cache, packed, layout, c)
+    torch.cuda.synchronize()
+    assert ncc_kernel.launch_ncc.launches == before + 1
+    exact = score_direct(type(cache)(*(t.double() for t in cache[:3]), cache.valid_hw),
+                         PackedVariants(packed.kernels.double(), packed.window_hw), layout, c)
+    assert got.shape == exact.shape == (layout.n_variants, cache.p0.shape[1])
+    assert torch.isfinite(got).all()
+    assert float((got.double() - exact).abs().max()) <= F64_TOL
+    geo = ncc_kernel.launch_geometry(cache.p0.shape[3], *kernel_hw,
+                                     *_host_plan(cache, packed, layout))
+    assert geo["stages"] >= 2 and geo["patch_buffers"] in (1, 2)
+
+
 def _host_plan(cache, packed, layout):
     tile = ncc_kernel.kernel_tile()
     row_hw = ncc_kernel.host_row_hw(packed.window_hw.cpu().numpy(), layout)
@@ -155,23 +204,24 @@ def test_kernel_rejects_bad_operands():
 
 
 @pytest.mark.parametrize(
-    "seed,c,n_prints,counts,pb,canvas,kernel_hw",
+    "seed,c,n_prints,counts,pb,canvas,kernel_hw,print_hw",
     [
-        (10, 8, 5, (1,), 4, (30, 30), (20, 20)),         # one tile (N = 4)
-        (11, 5, 6, (1, 3), 3, (41, 37), (33, 31)),       # C = 5; odd widths: odd x + dx starts
-        (12, 13, 4, (1, 8), 5, (46, 45), (34, 34)),      # C = 13, not a multiple of 8
-        (13, 8, 6, (1, 8, 8, 8), 15, (46, 46), (34, 34)),  # N = 375: a partial last tile
+        (10, 8, 5, (1,), 4, (30, 30), (20, 20), ()),         # one tile (N = 4)
+        (11, 5, 6, (1, 3), 3, (41, 37), (33, 31), ()),       # C = 5; odd widths: odd x + dx starts
+        (12, 13, 4, (1, 8), 5, (46, 45), (34, 34), ()),      # C = 13, not a multiple of 8
+        (13, 8, 6, (1, 8, 8, 8), 15, (46, 46), (34, 34), ()),  # N = 375: a partial last tile
         # fusion's stride-8 block: a 73 x 73 canvas over 88-wide prints
-        (14, 8, 3, (1, 8), 3, (92, 92), (73, 73)),
+        (14, 8, 3, (1, 8), 3, (92, 92), (73, 73), ()),
+        *RING_EDGES,  # the producer/consumer ring's edge cases
     ],
 )
-def test_bf16_leg_matches_plain_bf16(seed, c, n_prints, counts, pb, canvas, kernel_hw):
+def test_bf16_leg_matches_plain_bf16(seed, c, n_prints, counts, pb, canvas, kernel_hw, print_hw):
     """The bf16 leg against the plain scorer with bf16 operands: within
     1e-5, the same top print where the plain margin is clear; its one patch
     layout fits every canvas; and its scores lie further than that from the
     3xTF32 leg's."""
     _need_card()
-    cache, packed, layout = _case(seed, c, n_prints, counts, pb, canvas, kernel_hw)
+    cache, packed, layout = _case(seed, c, n_prints, counts, pb, canvas, kernel_hw, print_hw)
     plan = _host_plan(cache, packed, layout)
     before = dict(ncc_kernel.launch_ncc.leg_launches)
     got = ncc_kernel.score_ncc(cache, packed, layout, c, plan=plan, compute_dtype=torch.bfloat16)

@@ -46,8 +46,8 @@ SCALES = [1.02, 1.04, 1.08]
 # map canvases whose kernel canvases are the main path's 34 x 34 and the
 # synthetic fixture's 47 x 39 (the 1.08 scale widens the template canvas)
 MAP_CANVASES = {"main": (36, 36), "fixture": (48, 40)}
-# csrc/ncc_score.cu's tile: rows, positions, taps per chunk, threads
-TILE = nk.Tile(64, 256, 32, 512)
+# csrc/ncc_score.cu's tile: rows, positions, taps per chunk
+TILE = nk.Tile(64, 256, 32)
 
 
 def _stack(seed, mode, canvas, pb=6, c=2, n_prints=5):
@@ -175,7 +175,7 @@ def test_executed_flop_hand_worked():
     taps, 64 padded).
     Executed: 2 x 64 x 256 x (32 + 96 + 96 + 64) x 3 FLOP, at a tile of
     64 rows x 256 positions x 32 taps."""
-    tile = nk.Tile(rows=64, positions=256, taps=32, threads=512)
+    tile = nk.Tile(rows=64, positions=256, taps=32)
     row_hw = np.full((10, 2), 9)
     gvalid = np.asarray([[2, 3], [20, 30]])
     rows = nk.row_plan(row_hw, (9, 9), tile.rows)
@@ -186,6 +186,29 @@ def test_executed_flop_hand_worked():
     np.testing.assert_array_equal(rows.windows, [[[9, 9]]])
     np.testing.assert_array_equal(rows.host_table(), [*range(10), *[0] * 10, 0, 9, 0, 9, 1, 9, 9])
     assert nk.executed_flop(rows, gvalid, 3, (9, 9), tile) == 2 * 64 * 256 * (32 + 96 + 96 + 64) * 3
+
+
+@pytest.mark.parametrize("canvas", sorted(MAP_CANVASES))
+def test_every_block_keeps_the_centre_tap(canvas):
+    """The kernel's producer and consumers agree on each block's chunk count
+    from K; a live block never clips to K = 0 (the canvas centre tap lies in
+    every tile's rectangle and reaches every position), also for a 1 x 1
+    print and prints narrower or shorter than the canvas. ``executed_flop``
+    is the sum of those blocks' padded taps."""
+    _, packed, _, _, row_hw, kernel_hw = _stack(4, "reference", MAP_CANVASES[canvas], pb=8)
+    rows = nk.row_plan(row_hw, kernel_hw, TILE.rows)
+    rng = np.random.default_rng(5)
+    gvalid = np.concatenate([[[1, 1], [1, 40], [40, 1], [5, 7]],
+                             np.stack([rng.integers(1, 50, 30), rng.integers(1, 50, 30)], 1)])
+    k, live = nk.block_taps(rows, gvalid, kernel_hw, TILE)
+    assert k.shape == (len(rows.taps), *live.shape)
+    assert (k[:, live] >= 1).all()
+    assert (k[:, live] <= kernel_hw[0] * kernel_hw[1]).all()
+    # the 1 x 1 print: one block a tile, its centre tap alone
+    np.testing.assert_array_equal(k[:, 0, 0], 1)
+    k_pad = -(-k // TILE.taps) * TILE.taps
+    want = 2.0 * TILE.rows * TILE.positions * 3 * float(np.where(live[None], k_pad, 0).sum())
+    assert nk.executed_flop(rows, gvalid, 3, kernel_hw, TILE) == want
 
 
 @pytest.mark.parametrize("n_tile", [TILE.positions, 100])
@@ -298,3 +321,41 @@ def test_truncating_accumulator_needs_fresh_chunks():
     chunked = float((np.abs(run(4) - exact) / scale).max())
     assert chunked < 1e-6
     assert one > 4 * chunked
+
+
+def test_ptxas_report_reads_each_instantiation():
+    """``chip_smoke.ptxas_entries`` reads each NCC instantiation's leg,
+    launch registers, spills and ptxas's ``wgmma`` notes from an ``nvcc
+    -Xptxas -v`` report, and ``ncc_design`` puts them beside a call's roles
+    and ring (the lines of the kernel's report on the card, abridged)."""
+    import chip_smoke
+
+    name = ("_ZN45_GLOBAL__N__9c01ccf4_12_ncc_score_cu_2e53c2e016ncc_score_kernelILNS_3Leg"
+            "E{}EEEvPKfS3_S3_S3_PKiS5_PiNS_8GeometryE")
+    report = "\n".join([
+        "ptxas info    : (C7514) Potential Performance Loss: wgmma.mma_async instructions are "
+        f"serialized due to non wgmma instructions in the function '{name.format(1)}'",
+        f"ptxas info    : Compiling entry function '{name.format(2)}' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{name.format(1)}' for 'sm_90a'",
+        "    8 bytes stack frame, 12 bytes spill stores, 52 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__9c01_finalizeEPKiPfif' for "
+        "'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 16 registers, used 0 barriers",
+    ])
+    entries = chip_smoke.ptxas_entries(report)
+    assert [(e.get("layout"), e["registers"], e["spill_bytes"], e["wgmma_notes"])
+            for e in entries] == [("bf16", 168, 0, []), ("split", 168, 64, ["C7514"]),
+                                   (None, 16, 0, [])]
+    geometry = {"threads": 384, "producer_warpgroups": 1, "consumer_warpgroups": 2,
+                "producer_regs": 64,
+                "consumer_regs": 216, "stages": 3, "patch": "split", "patch_buffers": 2,
+                "smem_bytes": 213464, "leg": "f32_3xtf32"}
+    design = chip_smoke.ncc_design({"sources": {"ncc_score": {"entries": entries}}}, geometry)
+    assert design["stages"] == 3 and design["producer_regs"] == 64 and "leg" not in design
+    assert design["instantiations"] == [
+        {"layout": "bf16", "registers": 168, "spill_bytes": 0, "wgmma_notes": []},
+        {"layout": "split", "registers": 168, "spill_bytes": 64, "wgmma_notes": ["C7514"]}]
