@@ -47,6 +47,16 @@ Phases, each printing one JSON line:
    trace, per cluster: the device's busy and idle share, its 5 ops with the
    most time and its 3 longest idle gaps with the host op that spans each
    (:func:`trace_summary`).
+   Then ``summed_maps``: the visualisation script's path
+   (``scripts/summed_feature_maps``) on the fixture's first query and its
+   true print at full resolution, full-width EfficientNetV2_M at block 6
+   from seeded init (C = 176). The card's features against the CPU's
+   (within 1e-4 of the activation scale); on the card's features, the
+   card's per-channel maps and score against the CPU's (within 1e-4 and
+   1e-5); the score against the NCC kernel's score of the query's identity
+   variant against the print (within 1e-4, one launch). Reports the
+   extraction and maps times (CUDA events), the JAX script's loop of one
+   call a channel, and the engine's packing and kernel call. No PNG.
 4. ``fft``: the fixture's EfficientNetV2_M config (``main_path``'s) with
    ``ncc_backend = "fft"`` on the card (``ops/ncc.py``: cuFFT through
    ``torch.fft``, one FFT cache a cluster). Ranks and S-lines must equal
@@ -253,6 +263,9 @@ BF16_BLOCK = 40  # the cache_dtype run: three gallery blocks of the fixture's 12
 # in blocks of SHARD_BLOCK; sharded vs unsharded scores within BLOCK_TOL
 SHARDS = 4
 SHARD_BLOCK = 40
+# summed_maps: card vs CPU features relative to the activation scale; on the
+# card's features, cuFFT's score and per-channel maps against the CPU FFT's
+SUMMED_MAPS_TOL = {"features": 1e-4, "score": 1e-5, "maps": 1e-4}
 
 
 def emit(obj: dict) -> None:
@@ -745,6 +758,92 @@ def phase_main_path(tmp: Path, device: str = "cuda", gallery: int = 120,
         "kernel_runs_max_abs_diff_vs_run_1": kernel_err,
         "traces": traces,
     }, launches, runs[0], runs[1]
+
+
+def phase_summed_maps(dataset: Path, device: str = "cuda", reps: int = REPS) -> dict:
+    """The visualisation script's path (``scripts/summed_feature_maps``) on
+    the fixture's first query (``Query/{gid}_q0.jpg``) and its true print
+    (``Gallery/{gid}_1.jpg``) at full resolution, full-width EfficientNetV2_M
+    at block 6 from seeded init: the card's features against the CPU's, the
+    card's per-channel maps and score against the CPU's on the card's
+    features, and the score against the NCC kernel's score of the query's
+    identity variant against the print (``engine_score``; launch counts
+    reset just before it, read just after)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from shoeprint_image_retrieval_torch.models.weights import build_model
+    from shoeprint_image_retrieval_torch.ops import ncc_kernel
+    from shoeprint_image_retrieval_torch.ops.ncc import normxcorr_same
+    from shoeprint_image_retrieval_torch.scripts import summed_feature_maps as sfm
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    query = sorted((dataset / "Query").glob("*_q0.jpg"))[0]
+    pair = {"query": query, "print": dataset / "Gallery" / f"{query.name.split('_q')[0]}_1.jpg"}
+    imgs = {k: np.asarray(Image.open(path).convert("L")) for k, path in pair.items()}
+    cpu = build_model(sfm.MODEL, sfm.BLOCK, None, "cpu")
+    card = copy.deepcopy(cpu).to(dev)
+
+    def extract(model, where):
+        return [sfm.feature_maps(img, model, where, str(pair[k])) for k, img in imgs.items()]
+
+    t1 = time.perf_counter()
+    want = extract(cpu, "cpu")
+    cpu_extract_s = time.perf_counter() - t1
+    got = extract(card, dev)
+    q, p = got
+    feature_err = []
+    for w, g in zip(want, got):
+        scale = float(w.abs().max())
+        err = float((g.cpu() - w).abs().max())
+        if g.shape != w.shape or not torch.isfinite(g).all() or not 0 < scale \
+                or err > SUMMED_MAPS_TOL["features"] * scale:
+            raise AssertionError(f"summed_maps: card features {tuple(g.shape)} vs CPU "
+                                 f"{tuple(w.shape)}: max abs err {err} (scale {scale})")
+        feature_err.append({"max_abs_err": err, "scale": scale})
+    corr, summed, score = sfm.channel_maps(q, p)
+    corr_h, summed_h, score_h = sfm.channel_maps(q.cpu(), p.cpu())
+    map_err = float((corr.cpu() - corr_h).abs().max())
+    if not (np.isfinite(score) and torch.isfinite(corr).all()
+            and abs(score - score_h) <= SUMMED_MAPS_TOL["score"]
+            and map_err <= SUMMED_MAPS_TOL["maps"]):
+        raise AssertionError(f"summed_maps: card maps vs CPU maps: score {score} vs {score_h}, "
+                             f"max abs err per channel map {map_err}")
+    ncc_kernel.launch_ncc.launches = 0
+    kernel_score = sfm.engine_score(q, p)
+    launches = ncc_kernel.launch_ncc.launches
+    if dev.type == "cuda" and launches != 1:
+        raise AssertionError(f"summed_maps: the identity-variant check launched the NCC kernel "
+                             f"{launches} times, expected once")
+    if abs(kernel_score - score) > TOL:
+        raise AssertionError(f"summed_maps: score {score} vs the NCC kernel's identity-variant "
+                             f"score {kernel_score}")
+    timed = dev.type == "cuda"
+    return {
+        "phase": "summed_maps", "query": query.name, "print": pair["print"].name,
+        "image_hw": {k: list(img.shape) for k, img in imgs.items()},
+        "maps_chw": {"query": list(q.shape), "print": list(p.shape)},
+        "score": score, "score_cpu": score_h, "kernel_score": kernel_score,
+        "kernel_launches": launches,
+        "score_max_abs_diff_vs_cpu": abs(score - score_h),
+        "maps_max_abs_diff_vs_cpu": map_err,
+        "score_max_abs_diff_vs_kernel": abs(score - kernel_score),
+        "summed_max_abs_diff_vs_cpu": float((summed.cpu() - summed_h).abs().max()),
+        "features_vs_cpu": feature_err,
+        # CUDA events: both images' extraction as the script runs it, the
+        # batched per-channel maps, the JAX script's loop of one call a
+        # channel, and the engine's packing plus the kernel's N = 1, G = 1 call
+        "extract_ms": cuda_ms(lambda: extract(card, dev), reps) if timed else None,
+        "maps_ms": cuda_ms(lambda: sfm.channel_maps(q, p), reps) if timed else None,
+        "maps_loop_ms": cuda_ms(lambda: [normxcorr_same(q[c], p[c]) for c in range(len(q))],
+                                reps) if timed else None,
+        "engine_score_ms": cuda_ms(lambda: sfm.engine_score(q, p), reps) if timed else None,
+        "cpu_extract_s": cpu_extract_s,
+        "tol": SUMMED_MAPS_TOL | {"kernel": TOL},
+        "wall_s": time.perf_counter() - t0,
+    }
 
 
 def held_runs(name: str, got: tuple, want: tuple, tol: float) -> float:
@@ -1559,6 +1658,7 @@ def main() -> int:
         main_path, launches, plain, kernel_run = phase_main_path(Path(tmp))
         emit(main_path)
         dataset = Path(tmp) / "Dataset"
+        emit(phase_summed_maps(dataset))
         kernel_score_s = [r["stages_s"]["score"] for r in main_path["runs"]
                           if r["backend"] == "auto"]
         fft, fft_run = phase_fft(dataset, plain, kernel_score_s)

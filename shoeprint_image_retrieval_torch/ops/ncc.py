@@ -187,20 +187,23 @@ def score_one_template(cache: GalleryCache, template: torch.Tensor, template_val
 
 
 def normxcorr_same(template: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
-    """The reference's ``normxcorr(template, image, "same")`` for one 2-D
-    pair (similarity.py:26-72), built from the same pieces as the batched
-    path: a static-shape unit of the core math."""
-    th, tw = template.shape
-    ih, iw = image.shape
+    """The reference's ``normxcorr(template, image, "same")`` (similarity.py:
+    26-72) for a (..., th, tw) template stack and a (..., ih, iw) image stack
+    whose leading dimensions broadcast -> (..., ih, iw), built from the same
+    pieces as the batched path. Each leading index is its own pair: its
+    mean and energy are taken over its last two dimensions only, so a
+    (C, h, w) pair of feature maps gives the C per-channel maps in one call."""
+    th, tw = template.shape[-2:]
+    ih, iw = image.shape[-2:]
     fshape = correlation_fft_shape((ih, iw), (th, tw))
-    t0 = template - template.mean()
-    p0 = image - image.mean()
-    that = torch.fft.rfft2(torch.flip(t0, dims=(0, 1)), s=fshape)
+    t0 = template - template.mean(dim=(-2, -1), keepdim=True)
+    p0 = image - image.mean(dim=(-2, -1), keepdim=True)
+    that = torch.fft.rfft2(torch.flip(t0, dims=(-2, -1)), s=fshape)
     phat = torch.fft.rfft2(p0, s=fshape)
     conv = torch.fft.irfft2(phat * that, s=fshape)
-    num = conv[(th - 1) // 2 : (th - 1) // 2 + ih, (tw - 1) // 2 : (tw - 1) // 2 + iw]
+    num = conv[..., (th - 1) // 2 : (th - 1) // 2 + ih, (tw - 1) // 2 : (tw - 1) // 2 + iw]
     b1 = box_sum_same(integral_image(p0), th, tw)
     b2 = box_sum_same(integral_image(p0 * p0), th, tw)
     energy = torch.clamp(b2 - b1 * b1 / float(th * tw), min=0.0)
-    r = num / torch.sqrt(energy * (t0 * t0).sum())
+    r = num / torch.sqrt(energy * (t0 * t0).sum(dim=(-2, -1), keepdim=True))
     return torch.where(torch.isfinite(r), r, torch.zeros((), device=r.device))

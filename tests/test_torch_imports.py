@@ -82,6 +82,43 @@ MESH_MODULES = {
     "shoeprint_image_retrieval_torch.dryrun",
 }
 
+# modules added with the visualisation script's port
+SCRIPT_MODULES = {
+    "shoeprint_image_retrieval_torch.scripts.summed_feature_maps",
+}
+
+# the visualisation module needs matplotlib to plot only: it imports, and its
+# maps come out, with matplotlib refused (a CUDA host may not have it)
+BLOCKED_MATPLOTLIB = r"""
+import sys
+
+import numpy as np
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "matplotlib":
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import torch
+from shoeprint_image_retrieval_torch.scripts import summed_feature_maps as sfm
+
+rng = np.random.default_rng(0)
+q, p = (torch.from_numpy(rng.normal(size=(8, h, w)).astype(np.float32))
+        for h, w in ((7, 6), (9, 8)))
+corr, summed, score = sfm.channel_maps(q, p)
+assert corr.shape == (8, 9, 8) and np.isfinite(score)
+try:
+    sfm.plot(corr, summed, score, "unused.png")
+except ImportError as err:
+    assert "matplotlib" in str(err)
+else:
+    raise AssertionError("plot ran without matplotlib")
+assert not [m for m in sys.modules if m.split(".")[0] == "matplotlib"]
+print("ok")
+"""
+
 
 def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", BLOCKED_IMPORTS], cwd=REPO,
@@ -94,6 +131,14 @@ def test_port_imports_with_jax_blocked():
     assert BACKBONE_FFT_MODULES <= names
     assert SIZING_PRUNING_MODULES <= names
     assert MESH_MODULES <= names
+    assert SCRIPT_MODULES <= names
+
+
+def test_summed_maps_module_imports_without_matplotlib():
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_MATPLOTLIB], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_no_source_names_jax_or_the_jax_package():
