@@ -20,7 +20,11 @@ Phases, each printing one JSON line:
    per probe, PB = 56 probes, N = 1400 rows), plus the edge cases (zero
    template, flat print, zero-energy windows, a template larger than the
    prints). Max |kernel - plain| must be <= 1e-4, each row's true-match
-   rank identical and top-1 identical where the margin is clear. Reports
+   rank identical and top-1 identical where the margin is clear. Then the
+   fixture's cluster-0 call, built from a seed (``kernel_probe.case_inputs
+   ("fixture_c0")``: C = 80, 120 prints on 84 x 68 cropped maps, 375 rows
+   on a 47 x 39 kernel canvas), held the same way and timed beside its
+   bound, its plain version and one ``F.conv2d``, with its design. Reports
    the wrapper's time (CUDA events), the plain version's, one PyTorch
    convolution's (the yardstick, never called by the port), the least time
    the card could take at the route's peak (``bound_ms``, 3xTF32 at
@@ -56,7 +60,9 @@ Phases, each printing one JSON line:
    1e-5); the score against the NCC kernel's score of the query's identity
    variant against the print (within 1e-4, one launch). Reports the
    extraction and maps times (CUDA events), the JAX script's loop of one
-   call a channel, and the engine's packing and kernel call. No PNG.
+   call a channel, the engine's packing and kernel call, and the kernel's
+   call alone beside its bound, its plain version and one ``F.conv2d``. No
+   PNG.
 4. ``fft``: the fixture's EfficientNetV2_M config (``main_path``'s) with
    ``ncc_backend = "fft"`` on the card (``ops/ncc.py``: cuFFT through
    ``torch.fft``, one FFT cache a cluster). Ranks and S-lines must equal
@@ -158,7 +164,7 @@ Phases, each printing one JSON line:
    C = 176, PB = 128, in blocks of 2048 prints (five), with its checks
    (device ranks = host ranks, an oracle subsample within 5e-4, every
    planted match at rank 1).
-15. ``sizing``: the NCC kernel alone over PB = 28, 56, 64, 112, 224, 320 at
+15. ``sizing``: the NCC kernel alone over PB = 28, 56, 112, 320 at
    the bench's shapes (``benchmarks/kernel_probe``: ms, executed and needed
    FLOP, TFLOP/s, bound share) and at PB = 56 in each of its two patch
    layouts (split, float, float, split), the per-batch variant build
@@ -246,6 +252,9 @@ SCALES = [1.02, 1.04, 1.08]
 # over 88 x 88 prints at C = 80, takes ~9x block 6's FLOP a probe)
 FUSION_BLOCKS = (6, 4)
 FUSION_PROBES = 8
+# sizing: the probe batches of the kernel's sweep (kernel_probe.PBS less
+# 64 and 224, which the curve does not need, to keep the script's time)
+SIZING_PBS = (28, 56, 112, 320)
 # sizing: the cluster size the auto probe batch is solved for (more probes
 # than the card's row cap holds, so the cap and not the cluster decides)
 AUTO_PROBES = 1024
@@ -555,9 +564,38 @@ def phase_kernel(build: dict, pb: int = PROBES, reps: int = REPS, device: str = 
         "needed_flop": flops, "executed_flop": executed, "bytes": in_bytes + out_bytes,
         "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12,
         "bound_share": bound["bound_ms"] / kernel_ms,
+        "fixture_c0": fixture_c0_call(build, device),
         "comparison_launches": ncc_kernel.launch_ncc.launches - launches0,
         "wall_s": time.perf_counter() - t0,
     }
+
+
+def fixture_c0_call(build: dict, device: str = "cuda") -> dict:
+    """The fixture's cluster-0 call built synthetically
+    (``kernel_probe.case_inputs("fixture_c0")``: C = 80, 120 prints on 84 x
+    68 cropped maps, 375 rows on a 47 x 39 kernel canvas) against the plain
+    scorer (within TOL, true-match ranks identical), timed beside its bound
+    and one ``F.conv2d``, with its launch geometry and design."""
+    import numpy as np
+    import torch
+
+    from shoeprint_image_retrieval_torch.benchmarks import kernel_probe
+
+    dev = torch.device(device)
+    inputs = kernel_probe.case_inputs("fixture_c0", dev)
+    call = kernel_probe.probe_call(inputs, dev, library=True, plain=True, keep=True)
+    got, want = call.pop("out").cpu().numpy(), call.pop("plain_out").cpu().numpy()
+    if not np.isfinite(got).all() or call["max_abs_err"] > TOL:
+        raise AssertionError(f"kernel vs plain at fixture_c0: max abs err {call['max_abs_err']}")
+    rk = true_match_ranks(got, inputs["row_truth"])
+    rp = true_match_ranks(want, inputs["row_truth"])
+    if not np.array_equal(rk, rp):
+        raise AssertionError(f"fixture_c0: true-match ranks differ in {int((rk != rp).sum())} rows")
+    # the split pairs fit shared memory once at this shape: the float patch, twice
+    geometry = (call["geometry"]["patch"], call["geometry"]["patch_buffers"])
+    if geometry != ("float", 2):
+        raise AssertionError(f"fixture_c0: launch geometry {geometry}, not the float patch twice")
+    return {"case": "fixture_c0", **call, "design": ncc_design(build, call["geometry"])}
 
 
 def run_pipeline(config: dict, backend: str, device: str = "cuda", mesh_devices=None, **tpu):
@@ -773,6 +811,7 @@ def phase_summed_maps(dataset: Path, device: str = "cuda", reps: int = REPS) -> 
     import torch
     from PIL import Image
 
+    from shoeprint_image_retrieval_torch.benchmarks import kernel_probe
     from shoeprint_image_retrieval_torch.models.weights import build_model
     from shoeprint_image_retrieval_torch.ops import ncc_kernel
     from shoeprint_image_retrieval_torch.ops.ncc import normxcorr_same
@@ -821,6 +860,18 @@ def phase_summed_maps(dataset: Path, device: str = "cuda", reps: int = REPS) -> 
         raise AssertionError(f"summed_maps: score {score} vs the NCC kernel's identity-variant "
                              f"score {kernel_score}")
     timed = dev.type == "cuda"
+    kernel_call = None
+    if timed:  # the kernel's N = 1, G = 1 call alone, beside its bound and one F.conv2d
+        cache, packed, layout = sfm.engine_operands(q, p)
+        window = packed.window_hw
+        call = kernel_probe.probe_call(
+            {"cache": cache, "packed": packed, "layout": layout, "channels": q.shape[0],
+             "kernel_hw": tuple(q.shape[-2:]), "row_hw": window.cpu().numpy(),
+             "slots": (window, torch.zeros(1, dtype=torch.int64, device=dev))},
+            dev, library=True, plain=True)
+        kernel_call = {k: call[k] for k in ("rows", "prints", "channels", "canvas", "kernel_hw",
+                                            "ms", "plain_ms", "library_ms", "bound_ms",
+                                            "bound_by", "max_abs_err", "geometry")}
     return {
         "phase": "summed_maps", "query": query.name, "print": pair["print"].name,
         "image_hw": {k: list(img.shape) for k, img in imgs.items()},
@@ -840,6 +891,7 @@ def phase_summed_maps(dataset: Path, device: str = "cuda", reps: int = REPS) -> 
         "maps_loop_ms": cuda_ms(lambda: [normxcorr_same(q[c], p[c]) for c in range(len(q))],
                                 reps) if timed else None,
         "engine_score_ms": cuda_ms(lambda: sfm.engine_score(q, p), reps) if timed else None,
+        "kernel_call": kernel_call,
         "cpu_extract_s": cpu_extract_s,
         "tol": SUMMED_MAPS_TOL | {"kernel": TOL},
         "wall_s": time.perf_counter() - t0,
@@ -988,7 +1040,7 @@ def phase_sizing(device: str = "cuda") -> dict:
 
     t0 = time.perf_counter()
     dev = torch.device(device)
-    out = {"phase": "sizing", "kernel_probe": kernel_probe.run(device=device),
+    out = {"phase": "sizing", "kernel_probe": kernel_probe.run(SIZING_PBS, device=device),
            "bench_build": bench_build.run(device=device),
            "bench_cachebuild": bench_cachebuild.run(device=device),
            "engine_host_maps": bench.run(device=device, q=PROBES, kernel=False, host_maps=True),
@@ -1704,6 +1756,12 @@ def main() -> int:
         # the 3xTF32 call's roles, ring and instantiations (the bf16 leg's
         # under its leg)
         "design": kern["design"],
+        # the fixture's cluster-0 call (a 47 x 39 canvas over 84 x 68 maps)
+        # alone; its launches on the path are main_path's cluster 0
+        "fixture_c0": {key: kern["fixture_c0"][key] for key in
+                       ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+                      | {"design": {k: kern["fixture_c0"]["design"][k]
+                                    for k in ("stages", "patch", "patch_buffers")}},
         # the 3xTF32 leg is the entry's primary; the bf16 leg's launches are
         # its fixture run's (tpu.precision = "bfloat16")
         "legs": {

@@ -26,8 +26,15 @@ for the pruned pass-1 call), optionally beside one ``F.conv2d`` of the same
 correlation (the library yardstick; the port never calls it) and one call
 of the plain scorer.
 
+``--case NAME`` times one named call of ``cases.CASES`` instead of the sweep:
+``fixture_c0`` is the synthetic fixture's stride-8 cluster (C = 80, 120
+prints on 84 x 68 cropped maps, 15 probes x 25 variants on a 47 x 39 kernel
+canvas), built from a seed by :func:`case_inputs`; ``--channels`` sets its C
+(256 and 128 are the VGG16 and DenseNet-201 calls of that shape).
+
     python -m shoeprint_image_retrieval_torch.benchmarks.kernel_probe [--pbs 28 56 ...]
-        [--precision f32_3xtf32|bf16] [--quick] [--device cuda|cpu]
+        [--case fixture_c0 [--channels C]] [--precision f32_3xtf32|bf16] [--quick]
+        [--device cuda|cpu]
 
 Prints one JSON line. With ``--device cpu`` the plain scorer runs and every
 time is the CPU's host clock, not a device time; ``--quick`` shrinks the
@@ -50,6 +57,7 @@ from ..ops.boxsum import EDGE_CROP
 from ..ops.ncc_direct import PackedVariants, VariantLayout, build_direct_cache, score_direct
 from ..retrieval.engine import batch_windows, build_kernels, variant_classes, variant_plan
 from ..utils.tracing import device_ms
+from .cases import CASES, Case, case_arrays
 
 # Published H100 SXM dense peaks (NVIDIA data sheet), the bounds of every
 # kernel the port times: FP32 on the CUDA cores, 3xTF32 (three TF32
@@ -60,6 +68,18 @@ PEAK_BYTES_PER_S = 3.35e12
 PBS = (28, 56, 64, 112, 224, 320)  # 320 x 25 = ops/ncc_kernel.H100_PROBE_ROWS
 QUICK_PBS = (2, 3)
 LAYOUT_PB = 56  # the main path's probe batch: the patch layouts timed against each other
+
+
+def case_inputs(case: str | Case, device: torch.device, quick: bool = False,
+                channels: int | None = None, seed: int = 0) -> dict:
+    """:func:`stack_inputs` of a :class:`~.cases.Case` or of the named
+    :data:`~.cases.CASES` call (``cases.case_arrays``), plus each row's true
+    print (``row_truth``)."""
+    gal, g_sizes, qmaps, q_sizes, truth = case_arrays(case, quick, channels, seed)
+    inputs = stack_inputs(gal, g_sizes, qmaps, q_sizes, device)
+    layout = inputs["layout"]
+    inputs["row_truth"] = truth[layout.row_groups() % layout.pb]  # groups are class-major
+    return inputs
 
 
 def bound(flop: float, moved: float, route: str = "f32_3xtf32") -> dict:
@@ -211,17 +231,35 @@ def run(pbs=PBS, quick: bool = False, device: str | torch.device = "cuda",
     return out
 
 
+def run_case(name: str, quick: bool = False, device: str | torch.device = "cuda",
+             channels: int | None = None, precision: str = "f32_3xtf32") -> dict:
+    """One call of the named :data:`CASES` call (:func:`case_inputs`)
+    through the kernel's ``precision`` leg, after one warm-up call."""
+    dev = resolve_device(device)
+    call = probe_call(case_inputs(name, dev, quick, channels), dev, precision=precision)
+    bench.log(f"{name} C={call['channels']} N={call['rows']} G={call['prints']}: "
+              f"{call['ms']:.1f} ms, {call['tflops']:.1f} TFLOP/s")
+    return {"metric": "ncc_kernel_case_ms", "case": name, "precision": precision, "call": call,
+            "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
+
+
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m shoeprint_image_retrieval_torch.benchmarks.kernel_probe")
     ap.add_argument("--pbs", type=int, nargs="+", default=None,
                     help=f"probe batches of the sweep (default {' '.join(map(str, PBS))})")
     ap.add_argument("--precision", default="f32_3xtf32", choices=tuple(ncc_kernel.PRECISIONS),
                     help="the kernel's leg (bf16: tpu.precision = \"bfloat16\")")
+    ap.add_argument("--case", choices=tuple(CASES), default=None,
+                    help="time this named call instead of the sweep")
+    ap.add_argument("--channels", type=int, default=None, help="the case's C (default its own)")
     ap.add_argument("--quick", action="store_true", help="small workload (for the CPU)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    pbs = args.pbs or (QUICK_PBS if args.quick else PBS)
-    result = run(pbs, args.quick, args.device, precision=args.precision)
+    if args.case:
+        result = run_case(args.case, args.quick, args.device, args.channels, args.precision)
+    else:
+        pbs = args.pbs or (QUICK_PBS if args.quick else PBS)
+        result = run(pbs, args.quick, args.device, precision=args.precision)
     print(json.dumps(result), flush=True)
     return result
 

@@ -36,10 +36,13 @@
 // sums as that body; on an H100 80GB HBM3 at 700 W the main-path call
 // (PB = 56, benchmarks/kernel_probe.py, both bodies in one run) went from
 // 3467 to 2358 ms (3xTF32, 30.5 % of its bound) and from 2065 to 1150 ms
-// (bf16, 10.4 %) (PERF.md). What bounds it now is the producer: a chunk's
-// 2048 taps are gathered with 4-byte copies and converted by one or two
-// warps, the consumers wait for the next chunk part of the time, and the
-// tensor cores run the 3xTF32 products at about half their rate.
+// (bf16, 10.4 %) (PERF.md). What bounds it now is the producer. Role
+// counters at the main-path call (clock64 sums per role in a counted copy
+// of this source, which ships none; H100 80GB HBM3 at 700 W; PERF.md): the consumers wait for
+// the next chunk 15 % of their time and for the next channel's patch 8 %;
+// the staging warp is busy 98 % of its time, 54 % of it on the einv table;
+// the copy warps wait for a free stage 25 % of theirs. The tensor cores run
+// the 3xTF32 products at about half their rate.
 //
 // The design:
 // - Per channel the correlation is an implicit GEMM: M = 256 output
@@ -82,7 +85,7 @@
 //   at a time would wait out its latency. The split stays in the producer
 //   rather than in a one-off pass over the stack: a split copy of the stack
 //   would double what the stack costs in device memory at the deepest probe
-//   batches. The ring holds S stages (3-6, the deepest that fits shared
+//   batches. The ring holds S stages (2-6, the deepest that fits shared
 //   memory). A 1-D bulk copy (TMA) of each row's aligned tap range, tried
 //   where every tap plane is 16-byte aligned, made the converter's gather
 //   dearer than the copies it saved, and was dropped.
@@ -90,8 +93,10 @@
 //   channel's print patch (split pairs, floats or bf16) and the inverse
 //   energy of every (tile window, position) from the integral images into
 //   one of two buffers, up to a channel ahead of the consumers, so they
-//   find the next channel's buffers ready. Where two buffers do not fit
-//   (the large canvases), one buffer is staged as each channel starts.
+//   find the next channel's buffers ready. Two buffers of the float patch
+//   come before one of the split patch (ncc_score_geometry); where no two
+//   fit, one buffer is staged as each channel starts, while the consumers
+//   wait.
 // - Sums: the tensor cores round each product's sum into their FP32
 //   accumulator toward zero, so a long run of products into one
 //   accumulator drifts by up to an ulp of the running sum per product (one
@@ -110,11 +115,12 @@
 //   and channel sums (128 floats) and their A fragments.
 // - Large canvases: the patch a block stages grows with the kernel canvas
 //   and the print's width ((rows + hk - 1) x (Wb + wk - 1)). Where its
-//   split (hi, lo) pairs do not fit shared memory (a 73 x 73 canvas over
-//   88-wide prints: fusion's stride-8 block of a stride-16 cluster), the
-//   block stages the patch as plain floats and the consumers split each A
-//   element as they read it: half the patch bytes, the same products and
-//   sums (bit-identical), more work per product.
+//   split (hi, lo) pairs do not fit shared memory twice (a 47 x 39 canvas
+//   over 84 x 68 prints: the fixture's and the families' stride-8 calls;
+//   a 73 x 73 canvas over 88-wide prints: fusion's stride-8 block of a
+//   stride-16 cluster), the block stages the patch as plain floats and the
+//   consumers split each A element as they read it: half the patch bytes,
+//   the same products and sums (bit-identical), more work per product.
 // - Epilogue per channel: the channel's correlation is scaled by
 //   einv(c, row window, position) and added to the sum over channels.
 //   einv depends on the row only through its window, and sorted tiles hold
@@ -183,7 +189,11 @@ enum Leg : int { kFloat = 0, kSplit = 1, kBf16 = 2 };
 // block is the register file, 65,536); the staging warps' loads in flight a
 // lane. The bf16 leg's short products leave its producer the limit, so it
 // has two producer warpgroups; the 3xTF32 legs keep one (with two, the
-// split patch's consumers spill at any register split).
+// split patch's consumers spill at any register split). Measured with role
+// counters in a counted copy (H100 80GB HBM3 at 700 W; PERF.md): one copy
+// warp beside two staging warps made the main-path call 16 % slower (the
+// copies then pace it); einv loads batched by four spill at 64 registers
+// and slowed every call.
 template <Leg L>
 struct Roles {
   static constexpr int kProducers = 1, kCopy = 2, kConvert = 1, kStage = 1;
@@ -960,37 +970,45 @@ int ncc_score_roles(int precision, int* threads, int* producers, int* consumers,
 }
 
 // Tap-ring stages, patch buffers, layout and dynamic shared memory for these
-// sizes: the first that fits the card's limit, in the order (layout, then
-// two patch buffers, then one), the deepest ring first. Two buffers come
-// first at any depth: with one, the staging warps stage each channel while
-// the consumers wait. `precision` 0 is the
-// 3xTF32 leg, whose layouts are the split patch, then the float patch;
-// `patch` -1 takes either, 0 only the float patch, 1 only the split patch.
-// `precision` 1 is the bf16 leg (its one layout; `patch` must be -1).
-// `layout` is the Leg. Returns 0, or a CUDA error code when none fits.
+// sizes: the first that fits the card's limit, in the order (two patch
+// buffers, then one; within each the layouts in order; within each the
+// deepest ring first). Two buffers come first at any depth and in either
+// layout: with one, the staging warp stages each channel while the
+// consumers wait. At the 47 x 39 canvas over 84 x 68 prints (the split
+// patch fits once, with a 4-deep ring) the consumers waited on the patch
+// for 46 % of their time; the float patch in two buffers with a 3-deep
+// ring cut that to 9 % and the call from 744 to 517 ms, though the
+// consumers split A where they read it (role counters, PERF.md). Within
+// two buffers the split patch stays first even at a 2-deep ring: at 5
+// probes of that call it took 174 ms, the float patch at 3 stages 183 ms
+// (benchmarks/ncc_ab.py). Both on an H100 80GB HBM3 at 700 W (PERF.md).
+// `precision` 0 is the 3xTF32 leg, whose layouts are the split patch, then
+// the float patch; `patch` -1 takes either, 0 only the float patch, 1 only
+// the split patch. `precision` 1 is the bf16 leg (its one layout; `patch`
+// must be -1). `layout` is the Leg. Returns 0, or a CUDA error code when
+// none fits.
 int ncc_score_geometry(int Wb, int hk, int wk, int patch_rows, int n_windows, int precision,
                        int patch, int* stages, int* buffers, int* layout, long long* smem) {
   Geometry geo = make_geometry(Wb, hk, wk, patch_rows, n_windows);
   if (precision < 0 || precision > 1 || (precision == 1 && patch >= 0))
     return (int)cudaErrorInvalidValue;
   const Leg legs[3] = {kSplit, kFloat, kBf16};
-  const int tries[2][3] = {{2, kMaxStages, 2}, {1, kMaxStages, 2}};
-  for (int i = precision ? 2 : 0; i < (precision ? 3 : 2); ++i) {
-    if (patch >= 0 && legs[i] != patch) continue;
-    for (const auto& tr : tries)
-      for (int s = tr[1]; s >= tr[2]; --s) {
-        geo.patch_buffers = tr[0];
+  for (int p = 2; p >= 1; --p)
+    for (int i = precision ? 2 : 0; i < (precision ? 3 : 2); ++i) {
+      if (patch >= 0 && legs[i] != patch) continue;
+      for (int s = kMaxStages; s >= 2; --s) {
+        geo.patch_buffers = p;
         geo.stages = s;
         const size_t bytes = layout_of(geo, legs[i]).total;
         if (bytes <= (size_t)kSmemLimit) {
           *stages = s;
-          *buffers = tr[0];
+          *buffers = p;
           *layout = legs[i];
           *smem = (long long)bytes;
           return 0;
         }
       }
-  }
+    }
   return (int)cudaErrorInvalidConfiguration;
 }
 

@@ -64,7 +64,8 @@ ROUTE = {"f32_3xtf32": "wgmma m64n64k8 3xTF32 (A from registers), producer/consu
 LEG_OF_DTYPE = {torch.float32: "f32_3xtf32", torch.bfloat16: "bf16"}
 DTYPE_OF_LEG = {leg: dtype for dtype, leg in LEG_OF_DTYPE.items()}
 # the 3xTF32 leg's patch layouts a caller may ask for: the kernel's own
-# choice (the split patch where it fits, else the float patch), or one of
+# choice (the split patch where it fits twice, else the float patch where
+# it does, else the split patch once, else the float patch once), or one of
 # them only; the bf16 leg has one layout, "auto"
 PATCHES = {"auto": -1, "float": 0, "split": 1}
 # the layout codes ncc_score_geometry reports
@@ -398,11 +399,11 @@ def launch_geometry(wb: int, hk: int, wk: int, rows: RowPlan, prints: PrintPlan,
                     patch: str = "auto", precision: str = "f32_3xtf32") -> dict:
     """The kernel's leg, block shape, roles, tap-ring stages, patch layout
     (the 3xTF32 leg's ``split`` (hi, lo) pairs, or ``float`` split where
-    read, for canvases whose split patch does not fit; the bf16 leg's
+    read, for canvases whose split patch does not fit twice; the bf16 leg's
     ``bf16``), patch buffers (2: the next channel's staged beside the
-    current one's products; 1 where two do not fit) and shared memory for
-    these sizes and this plan (from the library itself, so the report
-    matches what runs)."""
+    current one's products, in either layout before one; 1 where two do not
+    fit) and shared memory for these sizes and this plan (from the library
+    itself, so the report matches what runs)."""
     _check_leg(precision, patch)
     stages, buffers, layout = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     smem = ctypes.c_longlong()

@@ -70,12 +70,11 @@ def channel_maps(q: torch.Tensor, p: torch.Tensor) -> tuple[torch.Tensor, torch.
     return corr, summed, float(summed.max()) / q.shape[0]
 
 
-def engine_score(q: torch.Tensor, p: torch.Tensor) -> float:
-    """The engine's direct score of the query's identity variant against the
-    print, for the edge-cropped maps :func:`feature_maps` gives: the engine's
-    packing (``build_direct_cache``, ``fold_template``, ``PackedVariants``)
-    and ``ops/ncc_kernel.score_ncc`` — the NCC kernel on a CUDA tensor, its
-    plain version on the CPU. Equals :func:`channel_maps`'s score."""
+def engine_operands(q: torch.Tensor, p: torch.Tensor):
+    """(cache, packed, layout): the engine's packing (``build_direct_cache``,
+    ``fold_template``, ``PackedVariants``) of the query's identity variant
+    against the print, for the edge-cropped maps :func:`feature_maps`
+    gives."""
     dev = q.device
     # the engine crops EDGE_CROP px per edge itself: give it the maps uncropped
     q_raw, p_raw = (F.pad(m, (EDGE_CROP,) * 4)[None] for m in (q, p))
@@ -83,7 +82,15 @@ def engine_score(q: torch.Tensor, p: torch.Tensor) -> float:
     p_hw = torch.tensor([p_raw.shape[-2:]], dtype=torch.int32, device=dev)
     cache = build_direct_cache(p_raw, p_hw)
     packed = PackedVariants(fold_template(q_raw, q_hw, tuple(q.shape[-2:])), q_hw - 2 * EDGE_CROP)
-    return float(score_ncc(cache, packed, VariantLayout((1,), 1), q.shape[0])[0, 0])
+    return cache, packed, VariantLayout((1,), 1)
+
+
+def engine_score(q: torch.Tensor, p: torch.Tensor) -> float:
+    """The engine's direct score of the query's identity variant against the
+    print (:func:`engine_operands` and ``ops/ncc_kernel.score_ncc``: the NCC
+    kernel on a CUDA tensor, its plain version on the CPU). Equals
+    :func:`channel_maps`'s score."""
+    return float(score_ncc(*engine_operands(q, p), q.shape[0])[0, 0])
 
 
 def plot(corr: torch.Tensor, summed: torch.Tensor, score: float, out_path, n_show: int = 8) -> None:

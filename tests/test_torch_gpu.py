@@ -11,6 +11,7 @@ import pytest
 import torch
 from PIL import Image
 
+from shoeprint_image_retrieval_torch.benchmarks import cases, kernel_probe
 from shoeprint_image_retrieval_torch.ops import mma_probe as mp
 from shoeprint_image_retrieval_torch.ops import ncc_kernel
 from shoeprint_image_retrieval_torch.ops.ncc_direct import (
@@ -87,6 +88,9 @@ def _case(seed, c, n_prints, counts, pb, canvas, kernel_hw, print_hw=()):
         # fusion's stride-8 block of a stride-16 cluster: a 73 x 73 canvas
         # over 88-wide prints, whose split patch does not fit (the float patch)
         (8, 8, 3, (1, 8), 3, (92, 92), (73, 73)),
+        # the families' stride-8 call at full width: C = 80, a 47 x 39 canvas
+        # over 84 x 68 maps, two row tiles (the float patch in two buffers)
+        (9, 80, 12, (1, 8, 8, 8), 3, (88, 72), (47, 39)),
     ],
 )
 def test_kernel_matches_plain(seed, c, n_prints, counts, pb, canvas, kernel_hw):
@@ -105,14 +109,87 @@ def test_kernel_matches_plain(seed, c, n_prints, counts, pb, canvas, kernel_hw):
     again = ncc_kernel.score_ncc(cache, packed, layout, c, plan=plan)
     assert torch.equal(again, got)
     geo = ncc_kernel.launch_geometry(cache.p0.shape[3], *kernel_hw, *plan)
-    assert geo["patch"] == ("float" if kernel_hw == (73, 73) else "split")
-    # the float patch splits where it reads: the same products and sums
-    if geo["patch"] == "split":
-        floats = ncc_kernel.score_ncc(cache, packed, layout, c, plan=plan, patch="float")
-        assert torch.equal(floats, got)
-    else:
-        with pytest.raises(RuntimeError, match="split patch"):
-            ncc_kernel.score_ncc(cache, packed, layout, c, plan=plan, patch="split")
+    # the layout rule: two patch buffers before one, in either layout; the
+    # split patch before the float patch at the same count
+    fits = {}
+    for patch in ("split", "float"):
+        try:
+            fits[patch] = ncc_kernel.launch_geometry(cache.p0.shape[3], *kernel_hw, *plan, patch)
+        except RuntimeError:
+            fits[patch] = None
+    first = max((g for g in fits.values() if g),
+                key=lambda g: (g["patch_buffers"], g["patch"] == "split"))
+    assert (geo["patch"], geo["patch_buffers"]) == (first["patch"], first["patch_buffers"])
+    if kernel_hw == (34, 34):  # the main path's canvas: the split patch, twice
+        assert (geo["patch"], geo["patch_buffers"]) == ("split", 2)
+    if (c, kernel_hw) == (80, (47, 39)):  # the split pairs fit once here: the float patch, twice
+        assert (geo["patch"], geo["patch_buffers"]) == ("float", 2)
+        assert fits["split"]["patch_buffers"] == 1
+    # either layout gives the same products and sums (the float patch splits
+    # where it reads); a layout that does not fit is refused
+    for patch, fit in fits.items():
+        if fit:
+            assert torch.equal(ncc_kernel.score_ncc(cache, packed, layout, c, plan=plan,
+                                                    patch=patch), got)
+        else:
+            with pytest.raises(RuntimeError, match=f"{patch} patch"):
+                ncc_kernel.score_ncc(cache, packed, layout, c, plan=plan, patch=patch)
+    if kernel_hw == (73, 73):  # fusion's canvas: only the float patch fits
+        assert fits["split"] is None
+
+
+_FIXTURE = cases.CASES["fixture_c0"]
+# the fixture's stride-8 call with narrower prints: a taller patch, whose
+# split pairs fit once
+_NARROW = _FIXTURE._replace(print_w=(45, 52))
+# the main path's canvases: a 34 x 34 kernel canvas over 42 x 42 maps
+_MAIN = cases.Case(16, 6, (38, 46), (38, 46), (46, 46), ((34, 30), (28, 33), (36, 36)),
+                          (36, 36))
+# fusion's: a 73 x 73 kernel canvas over 88 x 88 maps
+_FUSION = cases.Case(8, 6, (76, 92), (76, 92), (92, 92), ((70, 64), (60, 72), (72, 58)),
+                            (72, 72))
+# each launch geometry of the 3xTF32 leg, reached through `patch`: (case,
+# C, patch, (layout, patch buffers))
+GEOMETRIES = [
+    (_NARROW, 80, "auto", ("float", 2)),
+    (_NARROW, 80, "split", ("split", 1)),
+    (_FIXTURE, 80, "auto", ("split", 2)),  # 6 prints, few windows: the pairs fit twice
+    (_FIXTURE, 80, "float", ("float", 2)),
+    (_MAIN, 16, "auto", ("split", 2)),
+    (_FUSION, 8, "auto", ("float", 1)),
+]
+
+
+@pytest.mark.parametrize("case,c,patch,want", GEOMETRIES,
+                         ids=["narrow-auto", "narrow-split", "fixture-auto", "fixture-float",
+                              "main-auto", "fusion-auto"])
+def test_kernel_geometries_match_plain(case, c, patch, want):
+    """Every launch geometry the layout rule can pick, on seeded calls with
+    true matches (``kernel_probe.case_inputs`` at its quick size: 6 prints,
+    75 rows in two tiles): within TOL of the plain scorer, true-match ranks
+    identical, and the same sums as the kernel's own choice."""
+    _need_card()
+    dev = torch.device("cuda")
+    inputs = kernel_probe.case_inputs(case, dev, quick=True, channels=c)
+    cache, packed, layout, slots = (inputs[k] for k in ("cache", "packed", "layout", "slots"))
+    tile = ncc_kernel.kernel_tile()
+    plan = (ncc_kernel.row_plan(inputs["row_hw"], inputs["kernel_hw"], tile.rows, dev),
+            ncc_kernel.print_plan(cache.valid_hw.cpu().numpy(), tile.positions))
+    assert len(plan[0].taps) == 2
+    geo = ncc_kernel.launch_geometry(cache.p0.shape[3], *inputs["kernel_hw"], *plan, patch)
+    assert (geo["patch"], geo["patch_buffers"]) == want
+    before = ncc_kernel.launch_ncc.launches
+    got = ncc_kernel.score_ncc(cache, packed, layout, c, *slots, plan=plan, patch=patch)
+    torch.cuda.synchronize()
+    assert ncc_kernel.launch_ncc.launches == before + 1
+    plain = score_direct(cache, packed, layout, c, *slots)
+    assert torch.isfinite(got).all()
+    assert float((got - plain).abs().max()) <= TOL
+    truth = inputs["row_truth"][:, None]
+    ranks = [np.argmax(np.argsort(-s.cpu().numpy(), axis=1, kind="stable") == truth, axis=1)
+             for s in (got, plain)]
+    np.testing.assert_array_equal(ranks[0], ranks[1])
+    assert torch.equal(ncc_kernel.score_ncc(cache, packed, layout, c, *slots, plan=plan), got)
 
 
 # the producer/consumer ring's edge cases: (seed, c, n_prints, counts, pb,

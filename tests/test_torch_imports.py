@@ -87,6 +87,12 @@ SCRIPT_MODULES = {
     "shoeprint_image_retrieval_torch.scripts.summed_feature_maps",
 }
 
+# modules added with the NCC kernel's measurements at named calls
+KERNEL_MEASUREMENT_MODULES = {
+    "shoeprint_image_retrieval_torch.benchmarks.cases",
+    "shoeprint_image_retrieval_torch.benchmarks.ncc_ab",
+}
+
 # the visualisation module needs matplotlib to plot only: it imports, and its
 # maps come out, with matplotlib refused (a CUDA host may not have it)
 BLOCKED_MATPLOTLIB = r"""
@@ -132,6 +138,7 @@ def test_port_imports_with_jax_blocked():
     assert SIZING_PRUNING_MODULES <= names
     assert MESH_MODULES <= names
     assert SCRIPT_MODULES <= names
+    assert KERNEL_MEASUREMENT_MODULES <= names
 
 
 def test_summed_maps_module_imports_without_matplotlib():

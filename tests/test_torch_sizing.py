@@ -22,7 +22,7 @@ import torch
 
 from shoeprint_image_retrieval_torch import bench
 from shoeprint_image_retrieval_torch.benchmarks import (
-    bench_autosize, bench_build, bench_cachebuild, bench_fusion, bench_pruned, kernel_probe)
+    bench_autosize, bench_build, bench_cachebuild, bench_fusion, bench_pruned, cases, kernel_probe)
 from shoeprint_image_retrieval_torch.metrics import ranks_from_scores
 from shoeprint_image_retrieval_torch.ops import ncc_kernel
 from shoeprint_image_retrieval_torch.retrieval.engine import (
@@ -181,3 +181,51 @@ def test_benches_quick_on_cpu(capsys, name, main, argv, metric):
                                      result["block4_probes_per_sec"])
     if name == "bench_cachebuild":
         assert result["block"]["prints"] == 32 and result["bench"]["build_ms"] > 0
+
+
+@pytest.mark.parametrize("channels", [None, 3])
+def test_kernel_probe_fixture_case_operands(channels):
+    """``kernel_probe``'s named ``fixture_c0`` call at ``--quick`` widths
+    keeps the fixture's cluster-0 canvases: a 47 x 39 kernel canvas over 84
+    x 68 cropped prints, 25 variant rows a probe, each probe cut from its
+    true print."""
+    case = cases.CASES["fixture_c0"]
+    assert (case.channels, case.prints, len(case.probe_hw)) == (80, 120, 15)
+    quick = cases.QUICK_CASE
+    inputs = kernel_probe.case_inputs("fixture_c0", torch.device("cpu"), quick=True,
+                                      channels=channels)
+    c = channels or quick["channels"]
+    rows = quick["probes"] * 25
+    assert inputs["channels"] == c and inputs["kernel_hw"] == (47, 39)
+    cache, kernels = inputs["cache"], inputs["packed"].kernels
+    assert tuple(cache.p0.shape) == (-(-c // 8) * 8, quick["prints"], 84, 68)
+    assert tuple(cache.int1.shape) == tuple(cache.int2.shape) == (cache.p0.shape[0],
+                                                                 quick["prints"], 85, 69)
+    assert tuple(kernels.shape) == (rows, c, 47, 39) and kernels.dtype == torch.float32
+    assert inputs["row_hw"].shape == (rows, 2) and inputs["row_truth"].shape == (rows,)
+    valid = cache.valid_hw.numpy() + 4  # the cache's sizes are cropped by 2 a side
+    assert (valid[:, 0] >= case.print_h[0]).all() and (valid[:, 0] <= case.print_h[1]).all()
+    assert (valid[:, 1] >= case.print_w[0]).all() and (valid[:, 1] <= case.print_w[1]).all()
+    assert (np.diff(valid[:, 0]) <= 0).all()  # height-sorted, as the engine's cache
+    probes = np.asarray(case.probe_hw[:quick["probes"]])
+    truth = inputs["row_truth"][:quick["probes"]]  # class 0: each probe's original
+    assert (valid[truth] >= probes).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_case_arrays_reproduce_from_their_seed(seed):
+    """``cases.case_arrays`` draws the same call again from the same seed and
+    another from the next; prints and probes are zero outside their drawn
+    sizes, and each probe's true print is one of the call's."""
+    got = cases.case_arrays("fixture_c0", quick=True, seed=seed)
+    again = cases.case_arrays("fixture_c0", quick=True, seed=seed)
+    other = cases.case_arrays("fixture_c0", quick=True, seed=seed + 1)
+    for a, b in zip(got, again):
+        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(got[0], other[0])
+    gal, g_sizes, qmaps, q_sizes, truth = got
+    for maps, sizes in ((gal, g_sizes), (qmaps, q_sizes)):
+        for m, (h, w) in zip(maps, sizes):
+            assert np.count_nonzero(m[:, :h, :w]) == m[:, :h, :w].size
+            assert not m[:, h:].any() and not m[:, :, w:].any()
+    assert ((truth >= 0) & (truth < len(gal))).all()
