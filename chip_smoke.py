@@ -50,6 +50,7 @@ Phases, each printing one JSON line:
    route, peak device memory and score time per cluster, and from the
    trace, per cluster: the device's busy and idle share, its 5 ops with the
    most time and its 3 longest idle gaps with the host op that spans each
+   on the thread that issued the device work after it
    (:func:`trace_summary`).
    Then ``summed_maps``: the visualisation script's path
    (``scripts/summed_feature_maps``) on the fixture's first query and its
@@ -670,26 +671,44 @@ def trace_summary(events: list[dict], top: int = 5, gaps: int = 3) -> dict:
     and idle share (the union of kernel, copy and set intervals against the
     window), the ``top`` device ops with the most total time, and the
     ``gaps`` longest idle gaps, each with the innermost host op that spans
-    it (else the host op that overlaps it most). Times in ms."""
+    it (else the host op that overlaps it most). A gap's host ops are those
+    of the thread that launched the device work that ends it (the last
+    before it, for a gap at the window's end), found by the launch's
+    ``correlation``; all threads' where the trace links no launch. Times in
+    ms."""
     timed = [e for e in events if e.get("ph") == "X" and "dur" in e and "ts" in e]
     if not timed:
         raise ValueError("the trace holds no timed events")
     span = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in timed]
     w0, w1 = min(s for s, _ in span), max(e for _, e in span)
     dev = [e for e in timed if e.get("cat") in DEVICE_CATS]
-    host = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e.get("name", ""))
-            for e in timed if e.get("cat") in HOST_CATS]
+    host = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e.get("name", ""),
+             (e.get("pid"), e.get("tid"))) for e in timed if e.get("cat") in HOST_CATS]
+    launcher = {e["args"]["correlation"]: (e.get("pid"), e.get("tid"))
+                for e in timed if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
     busy = _merged((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev)
     busy_us = sum(hi - lo for lo, hi in busy)
     edges = [w0] + [x for iv in busy for x in iv] + [w1]
     idle = sorted(((edges[i + 1] - edges[i], edges[i], edges[i + 1])
                    for i in range(0, len(edges), 2) if edges[i + 1] > edges[i]), reverse=True)
 
+    def issuer(lo: float, hi: float):
+        after = [e for e in dev if float(e["ts"]) == hi]
+        before = [e for e in dev if float(e["ts"]) + float(e["dur"]) == lo]
+        for e in after + before:
+            thread = launcher.get(e.get("args", {}).get("correlation"))
+            if thread is not None:
+                return thread
+        return None
+
     def spanning(lo: float, hi: float) -> str | None:
-        inside = [h for h in host if h[0] <= lo and h[1] >= hi]
+        thread = issuer(lo, hi)
+        ops = [h for h in host if thread is None or h[3] == thread]
+        inside = [h for h in ops if h[0] <= lo and h[1] >= hi]
         if inside:
             return min(inside, key=lambda h: h[1] - h[0])[2]
-        overlap = [(min(h[1], hi) - max(h[0], lo), h[2]) for h in host]
+        overlap = [(min(h[1], hi) - max(h[0], lo), h[2]) for h in ops]
         overlap = [o for o in overlap if o[0] > 0]
         return max(overlap)[1] if overlap else None
 

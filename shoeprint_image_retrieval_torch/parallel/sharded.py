@@ -54,6 +54,7 @@ from ..ops.ncc_kernel import (
     row_plan,
     score_ncc,
 )
+from ..utils.tracing import span
 from .mesh import PAD_VALID, Mesh, pad_gallery_cache
 
 
@@ -95,16 +96,24 @@ def build_sharded_cache(build: Callable, maps: torch.Tensor, valid: np.ndarray, 
     (G, 2) pre-crop valid sizes on the host. A shard short of its size is
     filled with zero prints of valid size :data:`~.mesh.PAD_VALID` after the
     crop, which score exactly 0. -> (shards, gallery size).
+
+    Each shard's slice is the span ``gather`` (the host gather of maps at
+    rest on the host; only the enqueue of maps on a device), its move to
+    the shard's device and the pad the span ``copy``: inside the engine's
+    ``cache`` stage, ``cache.gather`` and ``cache.copy``
+    (``utils/tracing.span``).
     """
     g = len(valid)
     k = -(-g // mesh.size)
     shards = []
     for i, (dev, v) in enumerate(zip(mesh.devices, shard_valid(valid, mesh.size))):
         lo, hi = min(i * k, g), min((i + 1) * k, g)
-        part = maps[lo:hi] if index is None else maps.index_select(0, index[lo:hi])
-        part = part.to(dev).float()
-        if hi - lo < k:
-            part = torch.cat([part, part.new_zeros((k - (hi - lo), *part.shape[1:]))])
+        with span("gather"):
+            part = maps[lo:hi] if index is None else maps.index_select(0, index[lo:hi])
+        with span("copy"):
+            part = part.to(dev).float()
+            if hi - lo < k:
+                part = torch.cat([part, part.new_zeros((k - (hi - lo), *part.shape[1:]))])
         shards.append(build(part, torch.as_tensor(v, device=dev)))
     return shards, g
 

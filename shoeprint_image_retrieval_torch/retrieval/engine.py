@@ -15,7 +15,8 @@ retrieval/engine.py`` (reference run.py:17-34 + similarity.py:129-375):
 * with ``tpu.pipeline_clusters``, cluster k+1's ingest and extraction on a
   lookahead thread while cluster k scores; with ``tpu.prewarm`` on a card,
   the NCC kernel's build on a thread from the moment the pipeline is made;
-  with ``tpu.profile_dir``, one ``torch.profiler`` trace per cluster;
+  with ``tpu.profile_dir``, one ``torch.profiler`` trace per cluster, every
+  thread's ranges in it;
 * the gallery cache: demeaned prints + integral images of the
   height-sorted gallery, built per block of ``tpu.gallery_block`` prints
   (``ops/ncc_direct.build_direct_cache``; 0 = the largest block that fits
@@ -111,7 +112,7 @@ from ..parallel.sharded import (
     make_sharded_scorer,
     shard_valid,
 )
-from ..utils.tracing import profile_trace, stage_timer
+from ..utils.tracing import profile_trace, span, stage_timer
 from .gallery import GalleryFeatureCache
 from .pruned import pruned_ranks
 
@@ -391,6 +392,18 @@ class Pipeline:
     that chunk's work) and overlap the calling thread's ``score`` and
     ``cache``. Both threads issue to the device's default stream, so their
     device work is serialised in the order it was issued.
+    ``lookahead_seconds`` is that thread's host-clock time, not a share of
+    the device's.
+
+    Both sinks also hold child spans (``utils/tracing.span``), host clock,
+    no synchronise, under dotted names inside their stage's seconds:
+    ``cache.gather`` and ``cache.copy`` (each gallery block's host gather
+    from the maps at rest and its copy to the card), and
+    ``extract-query.ingest-wait`` / ``extract-gallery.ingest-wait`` (the
+    extracting thread's wait for the stream worker's next chunk).
+    ``stage_seconds`` holds the calling thread's ``lookahead-wait`` stage
+    besides (host clock, no synchronise): its wait for the lookahead's
+    features, the part of the lookahead the scoring did not hide.
     """
 
     def __init__(self, config: dict, weights_dir: str | None = "weights",
@@ -745,7 +758,8 @@ class Pipeline:
         CLAHEs and packs chunk i+1 (and the next) onto the header-derived
         canvas, in pinned memory on a card, while the device extracts chunk
         i. Returns what :meth:`_extract` returns for the same images, which
-        it equals: the same canvas, chunks and batch shape.
+        it equals: the same canvas, chunks and batch shape. The extracting
+        thread's wait for each chunk is the span ``ingest-wait``.
         """
         crop = self.config["dataset"]["crop"]
         n_threads = self.config["dataset"]["n_processes"]
@@ -776,7 +790,9 @@ class Pipeline:
                 for ci in range(len(chunks)):
                     while len(futs) < min(STREAM_LOOKAHEAD, len(chunks) - ci):
                         futs.append(pool.submit(prep, chunks[ci + len(futs)]))
-                    yield futs.pop(0).result()
+                    with span("ingest-wait"):
+                        chunk = futs.pop(0).result()
+                    yield chunk
 
             return self._run_extraction(model, prepared(), len(files), False)
 
@@ -1096,11 +1112,14 @@ class Pipeline:
         code on the same inputs.
         """
         la, self._lookahead = self._lookahead, None
+        if la is not None:
+            # this thread's wait: the part of the lookahead the scoring did
+            # not hide (one made for another plan is let finish first)
+            with stage_timer("lookahead-wait", False, self.stage_seconds):
+                made = la[1].result()
         if la is not None and la[0] is plan:
-            out = la[1].result()
+            out = made
         else:
-            if la is not None:  # made for another plan: let it finish first
-                la[1].result()
             out = self._cluster_features_impl(plan)
         if next_plan is not None and self.config["tpu"]["pipeline_clusters"]:
             if self._la_pool is None:

@@ -79,3 +79,39 @@ def test_trace_summary_reads_a_hand_written_trace():
     ]
     with pytest.raises(ValueError):
         chip_smoke.trace_summary([{"ph": "i", "name": "x", "ts": 0}])
+
+
+def test_trace_summary_names_a_gap_on_the_launching_thread():
+    """Two threads over one gap [10, 50]: the scorer (tid 1) in ``cache``
+    [0, 60] with ``cache.gather`` [5, 50]; a lookahead (tid 2) in
+    ``extract-gallery`` [8, 52], shorter than either. The kernel after the
+    gap was launched from tid 1, so the gap is ``cache.gather``; the gap at
+    the window's end [60, 70], after a copy launched from tid 2, is that
+    thread's ``aten::copy_`` [55, 70]. Without the launches' correlation
+    every thread counts, and ``extract-gallery`` names the first gap."""
+    def x(name, cat, ts, dur, tid, corr=None):
+        e = {**_x(name, cat, ts, dur), "pid": 1, "tid": tid}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+
+    events = [
+        x("cache", "user_annotation", 0, 60, 1), x("cache.gather", "user_annotation", 5, 45, 1),
+        x("extract-gallery", "user_annotation", 8, 44, 2), x("aten::copy_", "cpu_op", 55, 15, 2),
+        x("cudaLaunchKernel", "cuda_runtime", 2, 1, 1, 7),
+        x("cudaLaunchKernel", "cuda_runtime", 49, 1, 1, 8),
+        x("cudaMemcpyAsync", "cuda_runtime", 54, 1, 2, 9),
+        {**x("k1", "kernel", 3, 7, 0, 7), "pid": 0},
+        {**x("k2", "kernel", 50, 5, 0, 8), "pid": 0},
+        {**x("Memcpy HtoD", "gpu_memcpy", 55, 5, 0, 9), "pid": 0},
+    ]
+    s = chip_smoke.trace_summary(events, gaps=3)
+    assert [(g["at_ms"], g["ms"], g["host_op"]) for g in s["idle_gaps"]] == [
+        (pytest.approx(0.01), pytest.approx(0.04), "cache.gather"),
+        (pytest.approx(0.06), pytest.approx(0.01), "aten::copy_"),
+        (pytest.approx(0.0), pytest.approx(0.003), "cache"),
+    ]
+    for e in events:
+        e.pop("args", None)
+    s = chip_smoke.trace_summary(events, gaps=1)
+    assert s["idle_gaps"][0]["host_op"] == "extract-gallery"
