@@ -33,8 +33,9 @@ Same parse as ``shoeprint_image_retrieval_tpu/config.py``: plain TOML, the
   scorer's correlation on operands rounded to bf16, the NCC kernel's bf16
   leg on a card; ``fft`` scores in f32 either way) and ``cache_dtype``
   (``"float32"``, or ``"bfloat16"``: gallery maps at rest on the host, over
-  ``SIR_DEVICE_MAPS_MAX`` or loaded from the gallery feature cache, are
-  held in bf16 while scored; the cache and scoring stay f32);
+  the engine's maps budget or loaded from the gallery feature cache's
+  host or disk copy, are held in bf16 while scored; maps on the device stay
+  f32, and the cache and scoring stay f32);
   ``probe_batch = 0`` means 56 on the CPU and on a card the rows the card
   can take (``ops/ncc_kernel.auto_probe_rows``); ``mesh_shape`` (the
   gallery sharded over that many devices, ``parallel/``; 0 = every visible

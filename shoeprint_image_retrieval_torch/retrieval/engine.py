@@ -17,6 +17,11 @@ retrieval/engine.py`` (reference run.py:17-34 + similarity.py:129-375):
   the NCC kernel's build on a thread from the moment the pipeline is made;
   with ``tpu.profile_dir``, one ``torch.profiler`` trace per cluster, every
   thread's ranges in it;
+* extracted maps kept on the device wherever they fit a share of its free
+  memory (:func:`_device_maps_budget`), and kept there for later clusters
+  by the gallery feature cache (``retrieval/gallery.py``), so a standing
+  gallery is scored from the card without a copy (``Pipeline.maps_at_rest``
+  says where each scoring call found them);
 * the gallery cache: demeaned prints + integral images of the
   height-sorted gallery, built per block of ``tpu.gallery_block`` prints
   (``ops/ncc_direct.build_direct_cache``; 0 = the largest block that fits
@@ -134,18 +139,33 @@ STREAM_LOOKAHEAD = 2
 MESH_EXTRA_BYTES = int(2.5e9)
 
 
-def _device_maps_budget() -> int:
-    """Bytes of extracted feature maps a set may keep on the card.
+# The share of a card's free memory that extracted feature maps may keep
+# there: the direct cache built from them holds three arrays of their size
+# (p0 and two integral images), so with maps at a quarter the whole
+# gallery's cache still fits in one block beside them
+DEVICE_MAPS_SHARE = 0.25
 
-    Under it a set's maps stay on the device from extraction into scoring;
-    above it (galleries too large for the card) each chunk's maps go to
-    host memory, pinned on a card, and the scorer moves them back a gallery
-    block at a time. On the CPU too maps over the budget are at rest on the
-    host, as NumPy arrays (the JAX engine's host arrays), which is what
-    ``tpu.cache_dtype`` reads. ``SIR_DEVICE_MAPS_MAX`` overrides the 2 GB
-    default (the JAX engine's ``_device_maps_budget``).
+
+def _device_maps_budget(dev: torch.device) -> int:
+    """Bytes of extracted feature maps that may rest on ``dev``.
+
+    Under it a set's maps stay on the device from extraction into scoring,
+    and the gallery feature cache keeps them there for later clusters (its
+    device entries in all stay under it); above it (galleries too large for
+    the card) each chunk's maps go to host memory, pinned on a card, and the
+    scorer moves them back a gallery block at a time. On a card the budget
+    is :data:`DEVICE_MAPS_SHARE` of its free memory (``device.free_bytes``)
+    as read at the call: extraction reads it at a set's first chunk. On the
+    CPU it is 2 GB (the JAX engine's ``_device_maps_budget``), and maps over
+    it are at rest on the host as NumPy arrays (the JAX engine's host
+    arrays), which is what ``tpu.cache_dtype`` reads. ``SIR_DEVICE_MAPS_MAX``
+    overrides it on both.
     """
-    return int(os.environ.get("SIR_DEVICE_MAPS_MAX", str(int(2e9))))
+    if "SIR_DEVICE_MAPS_MAX" in os.environ:
+        return int(os.environ["SIR_DEVICE_MAPS_MAX"])
+    if dev.type == "cuda":
+        return int(free_bytes(dev) * DEVICE_MAPS_SHARE)
+    return int(2e9)
 
 
 def _pad_chunk(batch: np.ndarray, valid: np.ndarray, bs: int) -> tuple[np.ndarray, np.ndarray]:
@@ -380,7 +400,11 @@ class Pipeline:
     ``"{precision}:{route}"``, the models' bound ``tpu.precision`` and the
     conv arithmetic that served it, ``models/layers.conv_route``) and
     ``mesh_runs`` (``"extract:{n}"`` per set extracted over a mesh of n >
-    1, ``"score:{n}"`` / ``"fft:{n}"`` per cluster scored over one).
+    1, ``"score:{n}"`` / ``"fft:{n}"`` per cluster scored over one) and
+    ``maps_at_rest`` (``"device"`` or ``"host"``, once per scoring call,
+    direct or FFT: where the gallery maps lay when the ``cache`` stage read
+    them; on the CPU, where the two are one memory, a tensor counts as
+    ``device`` and a NumPy array as ``host``).
 
     Stage seconds are kept per thread. The calling thread's stages go into
     ``stage_seconds``; each ends with a device-wide synchronise, so a stage
@@ -439,6 +463,7 @@ class Pipeline:
         self.probe_batches: list[int] = []  # probes per call, each direct scoring call
         self.prune_stats: list[dict] = []  # pruned_ranks' stats, each pruned cluster
         self.mesh_runs: Counter = Counter()
+        self.maps_at_rest: Counter = Counter()
         self._mode_cache: dict[str, str] = {}
         self._la_pool: ThreadPoolExecutor | None = None
         self._lookahead = None  # (plan, future of its features)
@@ -679,7 +704,7 @@ class Pipeline:
                          for j in (0, 1))
             if keep_device is None:
                 per_img = y[0].numel() * y.element_size()
-                keep_device = per_img * n_images <= _device_maps_budget()
+                keep_device = per_img * n_images <= _device_maps_budget(dev)
             pending.append((y, vy, n))
             drain(1)
         drain(0)
@@ -918,6 +943,7 @@ class Pipeline:
         """
         if self.config["tpu"]["ncc_backend"] == "fft":
             return self._score_cluster_fft(q_maps, q_valid, g_maps, g_valid)
+        self._count_maps_at_rest(g_maps)
         dev = self.device
         compute_dtype = (torch.bfloat16 if self.config["tpu"]["precision"] == "bfloat16"
                          else torch.float32)
@@ -1045,6 +1071,7 @@ class Pipeline:
         cache is built shard by shard and scored through ``parallel/sharded.
         make_sharded_scorer``.
         """
+        self._count_maps_at_rest(g_maps)
         dev = self.device
         q_maps = torch.as_tensor(q_maps).to(dev)
         n_q, true_c, hc, wc = q_maps.shape
@@ -1186,7 +1213,7 @@ class Pipeline:
                 q_maps, q_valid = self._extract(model, q_imgs, device_clahe=device_clahe)
         self.clahe_routes["device" if device_clahe else "host"] += 1
         with stage("extract-gallery"):
-            if g_cached is not None:  # at rest on the host
+            if g_cached is not None:  # on the device, or at rest on the host
                 g_maps, g_valid = g_cached[0], np.asarray(g_cached[1])
             else:
                 if stream:
@@ -1195,23 +1222,37 @@ class Pipeline:
                         plan.scale, self._g_hdr)
                 else:
                     g_maps, g_valid = self._extract(model, g_imgs, device_clahe=device_clahe)
-                self.gallery_cache.put(gkey, g_maps if isinstance(g_maps, np.ndarray)
-                                       else g_maps.cpu().numpy(), g_valid)
+                # on the device as they are, within the budget; else a host copy
+                self.gallery_cache.put(
+                    gkey, g_maps if self._on_device(g_maps) else np.asarray(g_maps), g_valid,
+                    device_budget=_device_maps_budget(self.device))
             g_maps = self._maps_at_rest(g_maps)
         return q_maps, q_valid, g_maps, g_valid, q_files
 
+    def _on_device(self, maps: torch.Tensor | np.ndarray) -> bool:
+        """Whether ``maps`` lie on the pipeline's device (a pinned host
+        tensor does not)."""
+        return isinstance(maps, torch.Tensor) and maps.device.type == self.device.type
+
+    def _count_maps_at_rest(self, g_maps: torch.Tensor | np.ndarray) -> None:
+        self.maps_at_rest["device" if self._on_device(g_maps) else "host"] += 1
+
     def _maps_at_rest(self, g_maps: torch.Tensor | np.ndarray) -> torch.Tensor | np.ndarray:
         """``tpu.cache_dtype = "bfloat16"``: gallery maps at rest on the host
-        (NumPy arrays or tensors off the device: over the
-        ``SIR_DEVICE_MAPS_MAX`` budget, or from the gallery feature cache)
-        as a bf16 tensor, made once a cluster, which halves the bytes each
-        gallery block moves to the device; maps on the device, and the FFT
-        backend's maps, stay as they are (the JAX engine casts its host maps
-        in its direct scoring path, after the FFT backend has branched off).
+        (NumPy arrays or tensors off the device: over the budget of
+        :func:`_device_maps_budget`, moved out of the gallery feature cache
+        past it, or loaded from its disk copy) as a bf16 tensor, made once a
+        cluster, which halves the bytes each gallery block moves to the
+        device. Maps on the device stay float32 as they are, in every call
+        of a standing pipeline: the feature cache keeps them there, so a
+        later cluster gets the first one's maps, not bf16-rounded host
+        copies. The FFT backend's maps stay as they are too (the JAX engine
+        casts its host maps in its direct scoring path, after the FFT
+        backend has branched off).
         """
         tpu = self.config["tpu"]
-        on_device = isinstance(g_maps, torch.Tensor) and g_maps.device.type == self.device.type
-        if tpu["cache_dtype"] != "bfloat16" or tpu["ncc_backend"] == "fft" or on_device:
+        if (tpu["cache_dtype"] != "bfloat16" or tpu["ncc_backend"] == "fft"
+                or self._on_device(g_maps)):
             return g_maps
         return torch.as_tensor(g_maps).to(torch.bfloat16)
 

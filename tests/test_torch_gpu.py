@@ -573,6 +573,34 @@ def test_maps_over_budget_go_to_pinned_host_memory(tmp_path, monkeypatch):
     assert ranks["0"] == ranks[str(int(2e9))]
 
 
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_standing_pipeline_keeps_gallery_maps_on_the_card(tmp_path, monkeypatch, cache_dtype):
+    """Two calls on one cluster of one pipeline, under the card's own
+    budget: the second scores the gallery maps the first left on the card,
+    with no host gather (``cache.gather`` under 5 ms) and the first call's
+    scores, bit for bit; under ``cache_dtype = "bfloat16"`` too, since maps
+    on the card stay float32."""
+    _need_card()
+    from shoeprint_image_retrieval_torch.config import load_config
+    from shoeprint_image_retrieval_torch.retrieval.engine import Pipeline
+
+    monkeypatch.delenv("SIR_DEVICE_MAPS_MAX", raising=False)
+    cfg = load_config(_pipeline_config(tmp_path))
+    cfg["tpu"]["cache_dtype"] = cache_dtype
+    pipe = Pipeline(cfg, weights_dir=None, verbose=False, device="cuda")
+    plan = pipe.plans[0]
+    first = pipe.run_cluster(plan)
+    gather = pipe.stage_seconds.get("cache.gather", 0.0)
+    second = pipe.run_cluster(plan)
+    pipe.close()
+    assert pipe.maps_at_rest == {"device": 2}
+    (entry,) = pipe.gallery_cache._ram.values()
+    assert entry[0].is_cuda and entry[0].dtype == torch.float32
+    assert pipe.stage_seconds["cache.gather"] - gather < 5e-3
+    np.testing.assert_array_equal(second.scores, first.scores)
+    np.testing.assert_array_equal(second.ranks, first.ranks)
+
+
 def test_bf16_maps_at_rest_cross_in_bf16(tmp_path):
     """``cache_dtype = "bfloat16"``: host maps rest as a bf16 tensor and are
     scored as those values widened on the card, bit for bit; maps on the
