@@ -54,8 +54,8 @@ class Reference:
                  dtype: torch.dtype, device: torch.device):
         self.dataset, self.config, self.scale = Path(dataset), config, scale
         model = config["model"]
-        self.ops = backbones.network(model["type"], block)
-        self.mean, self.std = backbones.NORMALISATION[model["type"]]
+        self.net = backbones.network(model["type"], block)
+        self.mean, self.std = backbones.normalisation(self.net)
         self.weights = {k: v.to(device=device, dtype=dtype) for k, v in weights.items()}
         self.dtype, self.device = dtype, device
         self._maps: dict[str, torch.Tensor] = {}
@@ -69,7 +69,7 @@ class Reference:
             img = ingest.clahe(img, m["clahe_clip_limit"], m["clahe_tile_grid_size"])
             x = ingest.normalise(img, self.mean, self.std, self.dtype, self.device)
             with torch.inference_mode():
-                self._maps[key] = backbones.forward(self.ops, self.weights, x)[0]
+                self._maps[key] = backbones.forward(self.net, self.weights, x)[0]
         return self._maps[key]
 
     def scores(self, mark: str, prints: Sequence[str]) -> np.ndarray:

@@ -111,24 +111,24 @@ def work_model(config: dict, plan, traffic_files: dict) -> dict:
     from . import flops
     from .reference import backbones
 
-    ops = backbones.network(config["model"]["type"], plan.block)
-    c = backbones.channels(ops)
+    net = backbones.network(config["model"]["type"], plan.block)
+    c = backbones.channels(net)
     crop = config["dataset"]["crop"]
     comp = config["comparison"]
     rots, scales = comp["rotations"] or [], comp["scales"] or []
 
     def feat(wh):
-        return backbones.out_size(ops, flops.ingest_hw(wh, crop, plan.scale))
+        return backbones.out_size(net, flops.ingest_hw(wh, crop, plan.scale))
 
     g_hw = {f: flops.ingest_hw(wh, crop, plan.scale) for f, wh in traffic_files["Gallery"].items()}
-    gvalid = np.asarray([backbones.out_size(ops, hw) for hw in g_hw.values()]) - 2 * flops.EDGE
+    gvalid = np.asarray([backbones.out_size(net, hw) for hw in g_hw.values()]) - 2 * flops.EDGE
     marks = {}
     for f, wh in traffic_files["Query"].items():
         rows = flops.variant_windows(feat(wh), len(rots), scales)
         marks[f] = {"flop": flops.needed_flop(rows, gvalid, c),
                     "bytes": flops.correlation_bytes(rows, gvalid, c),
-                    "backbone": backbones.conv_flop(ops, flops.ingest_hw(wh, crop, plan.scale))}
-    gallery_backbone = sum(backbones.conv_flop(ops, hw) for hw in g_hw.values())
+                    "backbone": backbones.conv_flop(net, flops.ingest_hw(wh, crop, plan.scale))}
+    gallery_backbone = sum(backbones.conv_flop(net, hw) for hw in g_hw.values())
     return {"marks": marks, "gallery_backbone": gallery_backbone}
 
 

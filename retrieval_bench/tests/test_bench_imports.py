@@ -1,6 +1,7 @@
 """Nothing the harness or the reference loads is JAX or the JAX package,
-compared by whole top-level names; the reference loads nothing of the
-program either."""
+compared by whole top-level names; the reference, every architecture's
+file under ``reference/nets/`` with it, loads nothing of the program
+either."""
 
 from __future__ import annotations
 
@@ -40,7 +41,9 @@ def test_harness_and_program_load_no_jax():
 def test_reference_loads_no_jax_and_no_program():
     mods = [f"retrieval_bench.reference.{p.stem}" for p in (HERE / "reference").glob("*.py")]
     got = loaded_after("\n".join(f"import {m}" for m in mods)
-                       + "\nimport retrieval_bench.check, retrieval_bench.weights")
+                       + "\nimport retrieval_bench.check, retrieval_bench.weights"
+                       + "\nfor p in retrieval_bench.reference.backbones.NETS.glob('*.py'):"
+                       + "\n    retrieval_bench.reference.backbones.architecture(p.stem)")
     assert not got & (JAX | {PROGRAM})
 
 

@@ -5,8 +5,8 @@ bias ~ U(-1/sqrt(fan_in), +1/sqrt(fan_in)) (PyTorch's default conv init),
 BatchNorm as the identity (weight 1, bias 0, running mean 0, variance 1).
 One ``torch.Generator`` on the run's device draws all of it in one call,
 split into the tensors in state-dict order; the shapes and keys come from
-the plain reference's layer tables (``reference/backbones.py``), under
-torchvision's names, so the same tensors load into the program
+the plain reference's file for the architecture (``reference/nets/``),
+under torchvision's names, so the same tensors load into the program
 (``{weights_dir}/{model_type}.pt``) and feed the reference.
 """
 
