@@ -37,6 +37,7 @@ from typing import Callable, Sequence
 import torch
 from torch import nn
 
+from ..utils.tracing import device_span
 from . import layers as L
 
 BN_EPS_V1 = 1e-5  # the B-series
@@ -206,7 +207,9 @@ class Features(nn.Module):
 
     Children register as ``features.{name}``: ``0``, ``1``, ... unless
     ``names`` gives torchvision's names (DenseNet's ``conv0``,
-    ``denseblock1``, ...). Truncation is positional either way.
+    ``denseblock1``, ...). Truncation is positional either way. Each child
+    runs in a device span ``net.{name}`` (:func:`~..utils.tracing.device_span`),
+    so a stage that extracts holds ``<stage>.net.{name}`` per kept child.
     """
 
     conv_precision = "float32"  # layers.set_conv_precision binds it
@@ -221,8 +224,9 @@ class Features(nn.Module):
         self.out_channels = list(out_channels)
 
     def forward(self, x: torch.Tensor, valid_hw: torch.Tensor):
-        for child in self.features:
-            x, valid_hw = child(x, valid_hw)
+        for name, child in self.features.named_children():
+            with device_span(f"net.{name}", x.device):
+                x, valid_hw = child(x, valid_hw)
         return x, valid_hw
 
 

@@ -17,6 +17,13 @@ stage's closing synchronise holds the device work. A stage's self time is
 its seconds minus its children's. Spans are ranges of their names too, and
 never print.
 
+A :func:`device_span` is a span whose seconds are the device's: inside a
+stage that synchronises a card, over work on that card, it records a CUDA
+event pair on the card's current stream, and the stage adds the seconds
+between them to its sink after its own closing synchronise. It adds no
+synchronise either. Anywhere else (the CPU, no stage, a stage that does not
+synchronise, work on another card) it is a :func:`span`.
+
 A :func:`profile_trace` records every thread's ranges and ops, each on its
 own ``tid``: the lookahead thread's stages and the stream worker's ops lie
 beside the calling thread's.
@@ -27,32 +34,53 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
 
 
+@dataclass
+class _Stage:
+    """One open stage: its name, its sink and, where it synchronises a card
+    (and has a sink), that card and its device spans' event pairs (key,
+    start, end), read after the synchronise."""
+
+    name: str
+    sink: dict | None
+    synced: torch.device | None = None
+    events: list = field(default_factory=list)
+
+
 class _Open(threading.local):
-    """The stages open on this thread, innermost last: (name, sink)."""
+    """The stages open on this thread, innermost last."""
 
     def __init__(self):
-        self.stages: list[tuple[str, dict | None]] = []
+        self.stages: list[_Stage] = []
 
 
 _open = _Open()
+
+
+def _card(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None else device.index
 
 
 @contextlib.contextmanager
 def stage_timer(name: str, verbose: bool = True, sink: dict | None = None,
                 device: torch.device | None = None):
     stages = _open.stages
-    stages.append((name, sink))
+    cuda = device is not None and device.type == "cuda"
+    stage = _Stage(name, sink, device if cuda and sink is not None else None)
+    stages.append(stage)
     t0 = time.perf_counter()
     try:
         with torch.profiler.record_function(name):
             yield
-            if device is not None and device.type == "cuda":
+            if cuda:
                 torch.cuda.synchronize(device)
+                for key, start, end in stage.events:
+                    sink[key] = sink.get(key, 0.0) + start.elapsed_time(end) / 1e3
     finally:
         dt = time.perf_counter() - t0
         stages.pop()
@@ -71,15 +99,38 @@ def span(part: str):
         with torch.profiler.record_function(part):
             yield
         return
-    parent, sink = stages[-1]
-    name = f"{parent}.{part}"
+    stage = stages[-1]
+    name = f"{stage.name}.{part}"
     t0 = time.perf_counter()
     try:
         with torch.profiler.record_function(name):
             yield
     finally:
-        if sink is not None:
-            sink[name] = sink.get(name, 0.0) + time.perf_counter() - t0
+        if stage.sink is not None:
+            stage.sink[name] = stage.sink.get(name, 0.0) + time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def device_span(part: str, device: torch.device):
+    """Time the block's work on ``device`` as a child of the stage open on
+    this thread: its device seconds into the stage's sink as
+    ``<stage>.<part>`` once the stage has synchronised ``device``; a
+    :func:`span` where the stage would not synchronise ``device``."""
+    stages = _open.stages
+    stage = stages[-1] if stages else None
+    if (stage is None or stage.synced is None or device.type != "cuda"
+            or _card(device) != _card(stage.synced)):
+        with span(part):
+            yield
+        return
+    name = f"{stage.name}.{part}"
+    stream = torch.cuda.current_stream(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.record_function(name):
+        start.record(stream)
+        yield
+        end.record(stream)
+    stage.events.append((name, start, end))
 
 
 @contextlib.contextmanager
